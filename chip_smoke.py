@@ -10,10 +10,25 @@ Phases, each printing one line (any failure exits non-zero):
 3. K1: the 2-NN matcher kernel against its plain PyTorch version on the
    card, on five cases, then both timed at 4096 x 4096 x 128.
 4. main path: ``IncrementalSfM(cfg, device="cuda").run(images)`` on the
-   57-frame 968x648 staircase scene at bench.py's frontend settings; checks
-   registration, ATE and reprojection error against ground truth, and that
-   the run went through the kernel (its launch counter).
-5. the last line: {"ok": true, "device": {...}}.
+   57-frame 968x648 staircase scene at bench.py's frontend settings, BA off;
+   checks registration, ATE and reprojection error against ground truth,
+   and that the run went through the kernel (its launch counter).
+5. bench path: bench.py's per-frame-BA path on the same frames (frames
+   staged as uint8, bootstrap, then detect -> register_frame -> global
+   ``ba.bundle_adjust_map(max_iterations=8, cg_iters=15)`` per frame), then
+   the densification sweep (``redetect_for_sweep`` + ``finalize_with_sweep``
+   grown to 65,536 points, strides 1 and 2); checks 57/57 cameras, ATE below
+   0.05 and below phase 4's, sub-pixel reprojection and BA rms, at least
+   15,000 finite points at sub-pixel rms after the sweep, and 167 K1
+   launches (1 bootstrap + 55 frames + 56 + 55 swept pairs).
+6. driver with BA: ``IncrementalSfM(cfg, device="cuda")`` on the same
+   frames with ``BaConfig(enabled=True, max_iterations=8)``, then
+   ``finalize()`` with the same sweep (compaction, shrink, track remap,
+   ``finalize_map``, sweep); checks 57/57 cameras, ATE below 0.05 and
+   below phase 4's, sub-pixel reprojection, a final cost below 1 px^2,
+   ATE after finalize below 0.05, at least 15,000 finite points and 167
+   K1 launches.
+7. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -182,11 +197,232 @@ def sift_pair(imgs, cfg):
     return ("4096x4096-sift",) + tuple(arr) + (cfg.frontend.lowe_ratio,)
 
 
+def stage_u8(imgs):
+    """bench.py's input: the sequence on the card as uint8."""
+    return torch.as_tensor(np.stack([(g * 255.0).astype(np.uint8) for g in imgs]),
+                           device=DEVICE)
+
+
+def gray_of(stack8, i):
+    """Frame i of the staged sequence as float32 in [0, 1] (bench.py's detect input)."""
+    return stack8[i].float() / 255.0
+
+
+def bgr_of(stack8, i):
+    """Frame i as a gray (H, W, 3) float32 image (bench.py's gray_bgr)."""
+    return stack8[i][..., None].expand(-1, -1, 3).float()
+
+
+def bench_frames(stack8, cfg, n_frames=None):
+    """bench.py's per-frame loop (bench.py:123-129) on the first `n_frames`
+    frames: bootstrap on frames 0 and 1, then per frame detect ->
+    register_frame -> global BA (8 LM iterations, 15 CG). Returns the
+    pipeline state and per-frame records (synchronized host wall, BA
+    device span from CUDA events, BA stats, the frame's stats)."""
+    from sfm_mvs_tpu_torch.models import ba
+    from sfm_mvs_tpu_torch.models.incremental import init_from_bootstrap, register_frame
+    from sfm_mvs_tpu_torch.ops import sift
+
+    n = stack8.shape[0] if n_frames is None else n_frames
+    K = torch.as_tensor(cfg.intrinsic_matrix(), device=DEVICE)
+
+    def detect(i):
+        return sift.detect_and_compute(gray_of(stack8, i), cfg.frontend)
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    pstate, st = init_from_bootstrap(gen, detect(0), detect(1), bgr_of(stack8, 1), K, cfg)
+    records = [{"frame": 1, "reproj_error": float(st.reproj_error), "accepted": True}]
+    for i in range(2, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pstate, st = register_frame(gen, pstate, detect(i), bgr_of(stack8, i), cfg)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        mstate, bst = ba.bundle_adjust_map(pstate.map, max_iterations=8, cg_iters=15)
+        e1.record()
+        pstate = pstate._replace(map=mstate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        records.append({
+            "frame": i, "wall_s": wall, "ba_ms": e0.elapsed_time(e1),
+            "reproj_error": float(st.reproj_error), "accepted": bool(st.accepted),
+            "ba_initial_cost": float(bst.initial_cost), "ba_final_cost": float(bst.final_cost),
+            "ba_iterations": int(bst.iterations), "ba_accepted": int(bst.accepted),
+        })
+    return pstate, records
+
+
+def sweep_config(cfg):
+    """bench.py's sweep (bench.py:224-234) at full size."""
+    import dataclasses
+
+    from sfm_mvs_tpu_torch.utils.config import SweepConfig
+
+    return dataclasses.replace(cfg, sweep=SweepConfig(
+        enabled=True, grow_points=65536, reproj_px=1.5, max_features=4096,
+        contrast_threshold=0.0025, pair_strides=(1, 2)))
+
+
+def bench_sweep(stack8, state, cfg):
+    """bench.py's finalize (bench.py:235-242): re-detect every frame at the
+    sweep's budget, then grow, sweep, cull and BA. Returns (state, info)."""
+    from sfm_mvs_tpu_torch.models import densify
+
+    n = int(state.num_cams)
+    cfg_sweep = sweep_config(cfg)
+    feats = densify.redetect_for_sweep([gray_of(stack8, i) for i in range(n)], cfg_sweep)
+    bgr = [bgr_of(stack8, i) for i in range(n)]
+    return densify.finalize_with_sweep(state, feats, bgr, cfg_sweep)
+
+
+def _pose_quality(state, Rt_gt):
+    from sfm_mvs_tpu_torch.utils import evaluate
+
+    cam_valid = state.cam_valid.cpu().numpy()
+    poses = state.poses.cpu().numpy()[cam_valid]
+    n = len(poses)
+    ate = evaluate.ate_rmse(poses, Rt_gt[:n]) if n >= 3 else float("inf")
+    rot = float(evaluate.rotation_errors_deg(poses, Rt_gt[:n]).max())
+    return n, ate, rot
+
+
+def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
+    """bench.py's path on the card: per-frame BA, then the sweep."""
+    from sfm_mvs_tpu_torch.models import map_store
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+
+    stack8 = stage_u8(imgs)
+    torch.cuda.reset_peak_memory_stats()
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    pstate, records = bench_frames(stack8, cfg)
+    loop_s = time.perf_counter() - t0
+    state = pstate.map
+    n_cams, ate, rot = _pose_quality(state, Rt_gt)
+    pts_before = int(state.point_valid.sum())
+    obs_before = int(map_store.num_observations(state))
+    last_rms = float(np.sqrt(records[-1]["ba_final_cost"]))
+    ba_rms = [float(np.sqrt(r["ba_final_cost"])) for r in records[1:]]
+    errs = [r["reproj_error"] for r in records]
+    warm = records[3:]  # frames 4.. (the first BA'd frames pay allocator warm-up)
+    wall = statistics.mean(r["wall_s"] for r in warm)
+    ba_ms = statistics.median(r["ba_ms"] for r in warm)
+
+    t0 = time.perf_counter()
+    state, info = bench_sweep(stack8, state, cfg)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = matching_cuda.launches
+    pts = state.points[state.point_valid].cpu().numpy()
+    obs_after = int(map_store.num_observations(state))
+    rms_sweep = float(np.sqrt(info["final_cost"]))
+    _, ate_sweep, rot_sweep = _pose_quality(state, Rt_gt)
+    n_pairs = sum(max(0, n_cams - s) for s in sweep_config(cfg).sweep.pair_strides)
+    expected = 1 + (len(imgs) - 2) + n_pairs
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    log(f"[bench] cameras {n_cams}/{len(imgs)} (v5e: 57/57)  ATE {ate:.6f} (v5e: 0.00225; "
+        f"BA off, phase 4: {ate_ba_off:.6f})  max_rot_err_deg {rot:.4f}")
+    log(f"[bench] last BA rms {last_rms:.4f} px (v5e: 0.4723)  max per-frame BA rms "
+        f"{max(ba_rms):.4f} px  reproj_px mean {statistics.mean(errs):.4f} max {max(errs):.4f}")
+    log(f"[bench] before sweep: points {pts_before} observations {obs_before} (v5e: 1526, 17495)")
+    log(f"[bench] after sweep: points {len(pts)} observations {obs_after} (v5e: 30271, 74981); "
+        f"swept {info['swept_points']}")
+    log(f"[bench] sweep rms {rms_sweep:.4f} px (v5e: 0.2628)  ATE {ate_sweep:.6f} (v5e: 0.00198)"
+        f"  max_rot_err_deg {rot_sweep:.4f}")
+    log(f"[bench] wall/frame incl. BA {wall * 1e3:.1f} ms (warm mean of {len(warm)}, "
+        f"synchronized host clock), {1.0 / wall:.3f} frames/s; loop total {loop_s:.1f} s")
+    log(f"[bench] BA {ba_ms:.2f} ms/frame (CUDA events, median of {len(warm)}); "
+        f"sweep {sweep_s:.2f} s; peak device memory {peak_gb:.2f} GiB")
+    log(f"[bench] K1 launches {launches} (expected {expected})")
+    with open("chiprun_out/chip_smoke_bench.json", "w") as fh:
+        json.dump({"frames": records, "sweep": info, "sweep_s": sweep_s}, fh)
+    if n_cams != len(imgs):
+        raise AssertionError(f"bench path registered {n_cams}/{len(imgs)} cameras")
+    if not ate < min(0.05, ate_ba_off):
+        raise AssertionError(f"bench path ATE {ate} not below min(0.05, BA-off {ate_ba_off})")
+    if not max(errs) < 1.0:
+        raise AssertionError(f"a frame's reprojection error {max(errs)} >= 1 px")
+    if not max(ba_rms) < 1.0:
+        raise AssertionError(f"a frame's BA rms {max(ba_rms)} >= 1 px")
+    if not rms_sweep < 1.0:
+        raise AssertionError(f"sweep rms {rms_sweep} >= 1 px")
+    if not np.isfinite(pts).all():
+        raise AssertionError("non-finite map points after the sweep")
+    if len(pts) < 15000:
+        raise AssertionError(f"{len(pts)} points after the sweep, expected >= 15000")
+    if launches != expected:
+        raise AssertionError(f"K1 launched {launches} times, expected {expected}")
+    return launches
+
+
+def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
+    """The driver's own BA and finalize on the card:
+    ``IncrementalSfM(cfg, device="cuda")`` with a global BA after every
+    frame (``BaConfig(enabled=True, max_iterations=8)``), then
+    ``finalize()``: compaction, shrink, track remap, ``finalize_map`` and
+    the sweep at bench.py's settings."""
+    import dataclasses
+
+    from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.utils.config import BaConfig
+
+    cfg_d = dataclasses.replace(sweep_config(cfg), ba=BaConfig(enabled=True, max_iterations=8))
+    sfm = IncrementalSfM(cfg_d, device=DEVICE)
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    run_state = sfm.run(imgs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_cams, ate, rot = _pose_quality(run_state, Rt_gt)
+    pts_run = int(run_state.point_valid.sum())
+    t0 = time.perf_counter()
+    state = sfm.finalize()
+    torch.cuda.synchronize()
+    fin_s = time.perf_counter() - t0
+    launches = matching_cuda.launches
+
+    info = sfm.finalize_info
+    errs = [s["reproj_error"] for s in sfm.stats]
+    walls = [s["wall_s"] for s in sfm.stats[3:]]
+    pts = state.points[state.point_valid].cpu().numpy()
+    _, ate_fin, rot_fin = _pose_quality(state, Rt_gt)
+    n_pairs = sum(max(0, n_cams - s) for s in cfg_d.sweep.pair_strides)
+    expected = (len(imgs) - 1) + n_pairs
+    log(f"[driver] run with BA: cameras {n_cams}/{len(imgs)} ATE {ate:.6f} "
+        f"max_rot_err_deg {rot:.4f} reproj_px max {max(errs):.4f} points {pts_run}")
+    log(f"[driver] finalize: capacity {state.points.shape[0]} points {len(pts)} "
+        f"final cost {info['final_cost']:.4f} px^2 (rms {np.sqrt(info['final_cost']):.4f} px) "
+        f"ATE {ate_fin:.6f} max_rot_err_deg {rot_fin:.4f}")
+    log(f"[driver] wall/frame incl. BA {statistics.mean(walls) * 1e3:.1f} ms (warm mean of "
+        f"{len(walls)}, synchronized host clock); run {run_s:.1f} s, finalize {fin_s:.2f} s")
+    log(f"[driver] K1 launches {launches} (expected {expected})")
+    if n_cams != len(imgs):
+        raise AssertionError(f"driver with BA registered {n_cams}/{len(imgs)} cameras")
+    if not ate < min(0.05, ate_ba_off):
+        raise AssertionError(f"driver with BA: ATE {ate} not below min(0.05, {ate_ba_off})")
+    if not max(errs) < 1.0:
+        raise AssertionError(f"driver with BA: a frame's reprojection error {max(errs)} >= 1 px")
+    if not info["final_cost"] < 1.0:
+        raise AssertionError(f"finalize final cost {info['final_cost']} >= 1 px^2")
+    if not ate_fin < 0.05:
+        raise AssertionError(f"ATE after finalize {ate_fin} >= 0.05")
+    if not np.isfinite(pts).all():
+        raise AssertionError("non-finite map points after finalize")
+    if len(pts) < 15000:
+        raise AssertionError(f"{len(pts)} points after finalize, expected >= 15000")
+    if launches != expected:
+        raise AssertionError(f"K1 launched {launches} times, expected {expected}")
+    return launches
+
+
 def phase_main(imgs, Rt_gt, cfg):
     from sfm_mvs_tpu_torch.models import map_store
     from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
     from sfm_mvs_tpu_torch.ops import matching_cuda, sift
-    from sfm_mvs_tpu_torch.utils import evaluate
 
     sfm = IncrementalSfM(cfg, device=DEVICE)
     matching_cuda.reset_launches()
@@ -196,11 +432,7 @@ def phase_main(imgs, Rt_gt, cfg):
     total_s = time.perf_counter() - t0
     launches = matching_cuda.launches
 
-    cam_valid = state.cam_valid.cpu().numpy()
-    poses = state.poses.cpu().numpy()[cam_valid]
-    n_cams = int(cam_valid.sum())
-    ate = evaluate.ate_rmse(poses, Rt_gt[: len(poses)]) if n_cams >= 3 else float("inf")
-    rot = float(evaluate.rotation_errors_deg(poses, Rt_gt[: len(poses)]).max())
+    n_cams, ate, rot = _pose_quality(state, Rt_gt)
     errs = [s["reproj_error"] for s in sfm.stats]
     walls = [s["wall_s"] for s in sfm.stats[2:]]  # warm: after the first two frames
     wall = statistics.mean(walls)
@@ -236,7 +468,7 @@ def phase_main(imgs, Rt_gt, cfg):
         raise AssertionError(f"K1 launched {launches} times, expected {len(imgs) - 1}")
     if not np.isfinite(pts).all():
         raise AssertionError("non-finite map points")
-    return launches
+    return launches, ate
 
 
 def _device_busy_ms(prof):
@@ -255,14 +487,28 @@ def _device_busy_ms(prof):
     return busy / 1e3, len(spans)
 
 
-def phase_profile(imgs, cfg, n_frames=10):
-    """Where the time goes (``--profile`` only): the synchronized wall time
-    of each stage of a frame over the first ``n_frames`` frames, then
-    torch.profiler over two warm registrations for the device's busy share
-    and its busiest operations. Full tables go to chiprun_out/profile.txt."""
+def _profile_window(fn):
+    """Run fn() under torch.profiler: (wall ms, device busy ms, device
+    ops, profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sfm_mvs_tpu_torch.models import incremental, map_store
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy, n_ops = _device_busy_ms(prof)
+    return wall, busy, n_ops, prof
+
+
+def phase_profile(imgs, cfg, n_frames=10):
+    """Where the time goes (``--profile`` only): the synchronized wall time
+    of each stage of bench.py's path over its first ``n_frames`` frames and
+    a sweep over them, then torch.profiler over two warm frames with BA and
+    over one LM iteration at the same map size, for the device's busy share
+    and its busiest operations. Full tables go to chiprun_out/profile.txt."""
+    from sfm_mvs_tpu_torch.models import ba, densify, incremental, map_store, refine
     from sfm_mvs_tpu_torch.ops import matching, pnp, ransac, sift, triangulation
 
     stages = {}
@@ -282,6 +528,7 @@ def phase_profile(imgs, cfg, n_frames=10):
 
         setattr(mod, name, wrapper)
 
+    stack8 = stage_u8(imgs[:n_frames])
     timed(sift, "detect_and_compute", "detect")
     timed(matching, "match_with_config", "match")
     timed(ransac, "ransac_pnp", "ransac_pnp")
@@ -290,45 +537,67 @@ def phase_profile(imgs, cfg, n_frames=10):
     timed(map_store, "append_points", "append_points")
     timed(map_store, "append_observations", "append_observations (4 per frame)")
     timed(incremental, "register_frame", "register_frame")
+    timed(ba, "bundle_adjust_map", "ba.bundle_adjust_map (8 LM iterations)")
+    timed(ba, "_lm_solve", "ba._lm_solve (one LM iteration's solve)")
+    timed(densify, "sweep_pair", "densify.sweep_pair")
+    timed(refine, "cull_map", "refine.cull_map")
     try:
-        sfm = incremental.IncrementalSfM(cfg, device=DEVICE)
-        sfm.run(imgs[:n_frames])
+        pstate, records = bench_frames(stack8, cfg)
+        bench_sweep(stack8, pstate.map, cfg)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
-    frame_ms = [s["wall_s"] * 1e3 for s in sfm.stats]
-    lines = [f"frames 1..{n_frames - 1} wall ms: " + ", ".join(f"{t:.1f}" for t in frame_ms)]
+    frame_ms = [r["wall_s"] * 1e3 for r in records[1:]]
+    lines = [f"bench path, frames 2..{n_frames - 1} wall ms incl. BA: "
+             + ", ".join(f"{t:.1f}" for t in frame_ms)]
     for key, secs in stages.items():
         warm = secs[2:] if len(secs) > 4 else secs
-        lines.append(f"{key:36s} n={len(secs):3d} median {statistics.median(warm) * 1e3:8.2f} ms")
+        lines.append(f"{key:42s} n={len(secs):4d} median {statistics.median(warm) * 1e3:8.2f} ms")
 
+    # Two warm frames with BA (features detected beforehand), then one LM
+    # iteration (solve + candidate cost) on the map they leave.
     dev = DEVICE
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    feats = [sift.detect_and_compute(torch.as_tensor(imgs[i], device=dev), cfg.frontend)
-             for i in range(5)]
-    bgr = [torch.as_tensor(np.repeat((g * 255.0)[..., None], 3, -1).astype(np.float32),
-                           device=dev) for g in imgs[:5]]
+    feats = [sift.detect_and_compute(gray_of(stack8, i), cfg.frontend) for i in range(5)]
+    bgr = [bgr_of(stack8, i) for i in range(5)]
     K = torch.as_tensor(cfg.intrinsic_matrix(), device=dev)
-    ps, _ = incremental.init_from_bootstrap(gen, feats[0], feats[1], bgr[1], K, cfg)
-    ps, _ = incremental.register_frame(gen, ps, feats[2], bgr[2], cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for i in (3, 4):
-            ps, _ = incremental.register_frame(gen, ps, feats[i], bgr[i], cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    busy, n_kernels = _device_busy_ms(prof)
-    summary = (f"[profile] 2 warm registrations: wall {wall:.1f} ms, device busy "
-               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {n_kernels} device ops")
+    box = {}
+    box["ps"], _ = incremental.init_from_bootstrap(gen, feats[0], feats[1], bgr[1], K, cfg)
+
+    def frame(i):
+        ps, _ = incremental.register_frame(gen, box["ps"], feats[i], bgr[i], cfg)
+        mstate, _ = ba.bundle_adjust_map(ps.map, max_iterations=8, cg_iters=15)
+        box["ps"] = ps._replace(map=mstate)
+
+    frame(2)
+    wall, busy, n_ops, prof = _profile_window(lambda: (frame(3), frame(4)))
+    summary = (f"[profile] 2 warm frames (register + BA): wall {wall:.1f} ms, device busy "
+               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {n_ops} device ops")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30,
                                       max_name_column_width=70)
+
+    prob = ba.problem_from_map(box["ps"].map)
+    lam = torch.tensor(1e-3, device=dev)
+
+    def lm_iteration():
+        dc, dp = ba._lm_solve(prob, lam, 15)
+        ba._cost(prob._replace(cam_params=prob.cam_params + dc, points=prob.points + dp))
+
+    lm_iteration()
+    wall_i, busy_i, ops_i, prof_i = _profile_window(lm_iteration)
+    P, C = prob.obs_mask.shape
+    summary_i = (f"[profile] one LM iteration at P={P}, C={C} (15 CG steps): wall "
+                 f"{wall_i:.2f} ms, device busy {busy_i:.2f} ms, idle share "
+                 f"{1 - busy_i / wall_i:.3f}, {ops_i} device ops")
+    table_i = prof_i.key_averages().table(sort_by="self_device_time_total", row_limit=25,
+                                          max_name_column_width=70)
     with open("chiprun_out/profile.txt", "w") as fh:
-        fh.write("\n".join(lines + [summary, table]) + "\n")
+        fh.write("\n".join(lines + [summary, table, summary_i, table_i]) + "\n")
     for ln in lines:
         log(f"[profile] {ln}")
     log(summary)
+    log(summary_i)
 
 
 def main(argv) -> int:
@@ -345,7 +614,9 @@ def main(argv) -> int:
     log(f"[scene] rendered {len(imgs)} frames {SCENE['image_size']} in {time.time() - t0:.1f}s")
     cfg = main_config()
     worst, ms_k, ms_p = phase_k1(sift_pair(imgs, cfg))
-    launches = phase_main(imgs, Rt_gt, cfg)
+    launches, ate_ba_off = phase_main(imgs, Rt_gt, cfg)
+    launches += phase_bench(imgs, Rt_gt, cfg, ate_ba_off)
+    launches += phase_driver(imgs, Rt_gt, cfg, ate_ba_off)
     if "--profile" in argv:
         phase_profile(imgs, cfg)
     print(smi)

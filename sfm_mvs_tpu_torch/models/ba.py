@@ -1,0 +1,424 @@
+"""Sparse Levenberg-Marquardt bundle adjustment with Schur complement.
+
+PyTorch port of ``sfm_mvs_tpu/models/ba.py`` on its 6-dof path: cameras
+are (axis-angle, translation), points 3-dof, observations fixed, on the
+map's dense (P, C) observation grid.
+
+- Residuals and their Jacobians (2x6 camera blocks A, 2x3 point blocks B)
+  are evaluated for every grid cell in closed form (the JAX package
+  differentiates with ``jax.jacfwd`` under two ``vmap``s): with
+  Xc = R(w) X + t, d(R X)/dw = -R [X]x J_r(w), the right Jacobian of SO(3),
+  and dXc/dX = R, as in ``ops/pnp.py``.
+- Normal equations: U_c = sum_p A^T A, V_p = sum_c B^T B and
+  W_pc = A^T B. Every product has a tiny inner or outer dimension (2x6
+  and 2x3 blocks, 3x3 and 6x6 matrix-vector products), so each is a
+  broadcast-multiply-then-sum, as in the JAX package: as (batched) GEMMs
+  cuBLAS ran them in 0.27-1.0 ms per call on the H100, ~10x the
+  elementwise form. W is materialized once per LM iteration as a
+  (C*6, P*3) matrix, so that both products of the matrix-free Schur
+  complement S = U - W V^-1 W^T are one matrix-vector product each (full
+  float32: the package turns TF32 off).
+- S is solved by block-Jacobi-preconditioned conjugate gradients.
+- The LM accept/reject loop runs ``max_iterations`` steps with no host
+  sync: a step counts only while the damping is below 1e5 (the JAX
+  ``while_loop``'s condition), so ``iterations`` and ``accepted`` equal the
+  JAX package's.
+
+Gauge: camera 0 is frozen (its Jacobian blocks are zeroed). The shared or
+per-camera intrinsics variants (``refine_intrinsics``, a 9-wide camera)
+are not ported (ROADMAP A12): ``intr`` stays the identity [1, 0, 0] and the
+projection is the pinhole ``K [R|t] X``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from sfm_mvs_tpu_torch.models.map_store import MapState
+from sfm_mvs_tpu_torch.ops import lie
+
+
+class BAProblem(NamedTuple):
+    """Fixed-capacity bundle-adjustment problem (a view over MapState)."""
+
+    cam_params: torch.Tensor  # (C, 6) [rvec | tvec]
+    points: torch.Tensor  # (P, 3)
+    cam_valid: torch.Tensor  # (C,)
+    point_valid: torch.Tensor  # (P,)
+    obs_uv: torch.Tensor  # (P, C, 2)
+    obs_mask: torch.Tensor  # (P, C)
+    K: torch.Tensor  # (3, 3)
+    frozen: torch.Tensor  # (C,) bool: cameras excluded from optimization
+    intr: torch.Tensor  # (3,) shared [focal_scale, k1, k2]; the identity here
+
+
+_INTR_IDENTITY = (1.0, 0.0, 0.0)
+
+
+class BAStats(NamedTuple):
+    initial_cost: torch.Tensor  # () mean squared pixel residual
+    final_cost: torch.Tensor
+    iterations: torch.Tensor  # () LM iterations executed
+    accepted: torch.Tensor  # () accepted steps
+
+
+def _require_6dof(cam_params: torch.Tensor) -> None:
+    if cam_params.shape[-1] != 6:
+        raise NotImplementedError(
+            f"{cam_params.shape[-1]}-wide camera blocks (per-camera intrinsics) "
+            "are not ported yet (ROADMAP A12)")
+
+
+def problem_from_map(state: MapState, frozen_first: int = 1,
+                     local_window: int = 0) -> BAProblem:
+    """Build a BAProblem from the map.
+
+    frozen_first: always freeze the first N cameras (gauge). local_window:
+    if > 0, also freeze every camera but the most recent `local_window`.
+    """
+    rvec, tvec = lie.matrix_to_rt(state.poses)
+    cam_idx = torch.arange(state.poses.shape[0], device=state.poses.device)
+    frozen = cam_idx < frozen_first
+    if local_window > 0:
+        frozen = frozen | (cam_idx < state.num_cams - local_window)
+    return BAProblem(
+        cam_params=torch.cat([rvec, tvec], dim=-1),
+        points=state.points,
+        cam_valid=state.cam_valid,
+        point_valid=state.point_valid,
+        obs_uv=state.obs_uv,
+        obs_mask=state.obs_mask,
+        K=state.K,
+        frozen=frozen,
+        intr=torch.tensor(_INTR_IDENTITY, dtype=state.points.dtype,
+                          device=state.points.device),
+    )
+
+
+def write_back_to_map(state: MapState, prob: BAProblem) -> MapState:
+    """Write optimized cameras and points back into the map."""
+    poses = lie.rt_to_matrix(prob.cam_params[:, :3], prob.cam_params[:, 3:6])
+    return state._replace(poses=poses, points=prob.points)
+
+
+# ---------------------------------------------------------------------------
+# Residuals + Jacobians on the (P, C) grid
+# ---------------------------------------------------------------------------
+
+
+def _rodrigues(w: torch.Tensor):
+    """(R, J_r) for rotation vectors w (C, 3): lie.so3_exp's coefficients
+    (with its Taylor forms below theta^2 = 1e-8) and the right Jacobian
+    J_r = I - b [w]x + c [w]x^2, c = (1 - a) / theta^2."""
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(theta2 + lie._EPS * lie._EPS)
+    small = theta2 < lie._EPS
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2)
+    Wx = lie.hat(w)
+    W2 = Wx @ Wx
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    a, b, c = a[:, None, None], b[:, None, None], c[:, None, None]
+    return eye + a * Wx + b * W2, eye - b * Wx + c * W2
+
+
+def _rows_times(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """Rows (P, C, n, 3) times per-camera matrices M (C, 3, 3)."""
+    return (X[..., 0, None] * M[:, None, 0] + X[..., 1, None] * M[:, None, 1]
+            + X[..., 2, None] * M[:, None, 2])
+
+
+def _res_jac_grid(cam_params, points, obs_uv, K, jacobian: bool = True):
+    """Pixel residuals r (P, C, 2) of every grid cell and, with `jacobian`,
+    their Jacobians A (P, C, 2, 6) w.r.t. the camera and B (P, C, 2, 3)
+    w.r.t. the point.
+
+    The projection is ``_residual_one``'s at the identity intrinsics:
+    u = fx x + skew y + cx, v = fy y + cy with x = Xc0 / z, y = Xc1 / z and
+    z = 1e-9 where |Xc2| < 1e-9 (zero derivative in z there).
+    """
+    _require_6dof(cam_params)
+    P, C = points.shape[0], cam_params.shape[0]
+    R, Jr = _rodrigues(cam_params[:, :3])
+    Xc = (points @ R.reshape(C * 3, 3).T).view(P, C, 3) + cam_params[:, 3:6]
+    z = Xc[..., 2]
+    guard = z.abs() < 1e-9
+    z = torch.where(guard, torch.full_like(z, 1e-9), z)
+    x = Xc[..., 0] / z
+    y = Xc[..., 1] / z
+    fx, sk, cx = K[0, 0], K[0, 1], K[0, 2]
+    fy, cy = K[1, 1], K[1, 2]
+    u0 = fx * x + sk * y
+    v0 = fy * y
+    r = torch.stack([u0 + cx, v0 + cy], dim=-1) - obs_uv
+    if not jacobian:
+        return r
+    inv_z = 1.0 / z
+    dz = torch.where(guard, torch.zeros_like(inv_z), -inv_z)
+    zero = torch.zeros_like(inv_z)
+    # d(u, v)/dXc = [[fx, skew, -u0], [0, fy, -v0]] / z: (P, C, 2, 3)
+    G = torch.stack([
+        torch.stack([fx * inv_z, sk * inv_z, u0 * dz], dim=-1),
+        torch.stack([zero, fy * inv_z, v0 * dz], dim=-1),
+    ], dim=-2)
+    # B = G R row by row, from R's rows (C, 3).
+    R0, R1, R2 = R[:, 0], R[:, 1], R[:, 2]
+    B = torch.stack([
+        (fx * R0 + sk * R1) * inv_z[..., None] + (u0 * dz)[..., None] * R2,
+        (fy * R1) * inv_z[..., None] + (v0 * dz)[..., None] * R2,
+    ], dim=-2)
+    # d/dw of a row g . (R X) is (X x (g R)) J_r.
+    XB = torch.linalg.cross(points[:, None, None, :].expand_as(B), B, dim=-1)
+    A = torch.cat([_rows_times(XB, Jr), G], dim=-1)
+    return r, A, B
+
+
+def _res_grid(cam_params, points, obs_uv, K):
+    """Pixel residuals (P, C, 2) of every grid cell."""
+    return _res_jac_grid(cam_params, points, obs_uv, K, jacobian=False)
+
+
+def _weights(prob: BAProblem) -> torch.Tensor:
+    """(P, C) observation weights: grid mask & valid point & valid camera."""
+    return (prob.obs_mask & prob.point_valid[:, None]
+            & prob.cam_valid[None, :]).to(prob.points.dtype)
+
+
+def _cost(prob: BAProblem, huber_delta: float = 0.0) -> torch.Tensor:
+    """Mean squared pixel residual over valid observations; with
+    `huber_delta` > 0 the mean Huber cost, the objective the robustified
+    ``_lm_solve`` step minimizes (step and acceptance test must agree)."""
+    w = _weights(prob)
+    r = _res_grid(prob.cam_params, prob.points, prob.obs_uv, prob.K)
+    sq = (r * r).sum(-1)
+    if huber_delta > 0.0:
+        rn = torch.sqrt(torch.clamp_min(sq, 1e-18))
+        rho = torch.where(rn <= huber_delta, sq, huber_delta * (2.0 * rn - huber_delta))
+    else:
+        rho = sq
+    return (rho * w).sum() / torch.clamp_min(w.sum(), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# 3x3 helpers
+# ---------------------------------------------------------------------------
+
+
+def _inv3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse (adjugate / det); a singular block
+    (|det| < 1e-20) gives zero. (..., 3, 3)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    Cc = d * h - e * g
+    D = -(b * i - c * h)
+    E = a * i - c * g
+    F = -(a * h - b * g)
+    G = b * f - c * e
+    H = -(a * f - c * d)
+    I = a * e - b * d
+    det = a * A + b * B + c * Cc
+    inv_det = torch.where(det.abs() < 1e-20, torch.zeros_like(det), 1.0 / det)
+    adj = torch.stack([
+        torch.stack([A, D, G], dim=-1),
+        torch.stack([B, E, H], dim=-1),
+        torch.stack([Cc, F, I], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[..., None, None]
+
+
+# ---------------------------------------------------------------------------
+# One damped Gauss-Newton (LM inner) solve
+# ---------------------------------------------------------------------------
+
+
+def _bmv(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched small matrix-vector product: (..., a, b), (..., b) -> (..., a)."""
+    return (M * x[..., None, :]).sum(-1)
+
+
+def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
+              huber_delta: float = 0.0):
+    """Solve the damped normal equations via Schur + PCG.
+
+    Returns (delta_cam (C, 6), delta_pts (P, 3)).
+    """
+    w = _weights(prob)  # (P, C)
+    r, A, B = _res_jac_grid(prob.cam_params, prob.points, prob.obs_uv, prob.K)
+    if huber_delta > 0.0:
+        # IRLS Huber weights min(1, delta/|r|), applied as sqrt to the
+        # residuals and the Jacobians.
+        rnorm = torch.linalg.norm(r, dim=-1)
+        w = w * torch.sqrt(torch.clamp_max(huber_delta / torch.clamp_min(rnorm, 1e-9), 1.0))
+    A = A * (w * (~prob.frozen).to(w.dtype))[..., None, None]
+    B = B * w[..., None, None]
+    r = r * w[..., None]
+    P, C = w.shape
+
+    U = (A[..., :, None] * A[..., None, :]).sum((0, 2))  # (C, 6, 6)
+    V = (B[..., :, None] * B[..., None, :]).sum((1, 2))  # (P, 3, 3)
+    # W as a (C*6, P*3) matrix: W[(c, a), (p, b)] = (A^T B)_pc[a, b].
+    At = A.permute(1, 3, 0, 2)  # (C, 6, P, 2)
+    Bt = B.permute(1, 0, 3, 2)  # (C, P, 3, 2)
+    W = torch.empty((C, 6, P, 3), dtype=A.dtype, device=A.device)
+    torch.mul(At[..., 0, None], Bt[:, None, ..., 0], out=W)
+    W = W.addcmul_(At[..., 1, None], Bt[:, None, ..., 1]).view(C * 6, P * 3)
+    g_c = -(A * r[..., None]).sum((0, 2))  # (C, 6)
+    g_p = -(B * r[..., None]).sum((1, 2))  # (P, 3)
+
+    # A camera with no (unfrozen) observation has an all-zero U block
+    # (its trace is the sum of its A^T A diagonal): give it the identity,
+    # since its gradient is zero and a near-singular block would wreck the
+    # preconditioner.
+    eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
+    eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
+    cam_active = U.diagonal(dim1=-2, dim2=-1).sum(-1) > 0.0
+    U = U + (lam * torch.diag_embed(U.diagonal(dim1=-2, dim2=-1)) + 1e-6 * eye6)
+    V = V + (lam * torch.diag_embed(V.diagonal(dim1=-2, dim2=-1)) + 1e-6 * eye3)
+    U = torch.where(cam_active[:, None, None], U, eye6)
+    V_inv = _inv3(V)
+    U_inv = torch.linalg.inv_ex(U + 1e-5 * eye6)[0]
+
+    def Wt_dot(xc):  # (C, 6) -> (P, 3): sum_c W_pc^T x_c
+        return (xc.reshape(1, C * 6) @ W).view(P, 3)
+
+    def W_dot(xp):  # (P, 3) -> (C, 6): sum_p W_pc x_p
+        return (W @ xp.reshape(P * 3, 1)).view(C, 6)
+
+    def S_apply(xc):
+        return _bmv(U, xc) - W_dot(_bmv(V_inv, Wt_dot(xc)))
+
+    # Schur right-hand side: b = g_c - sum_p W_pc V_p^-1 g_p.
+    b = g_c - W_dot(_bmv(V_inv, g_p))
+    def dot(a, b_):
+        return torch.vdot(a.reshape(-1), b_.reshape(-1))
+
+    x = torch.zeros_like(b)
+    rr = b
+    z = _bmv(U_inv, rr)  # block-Jacobi preconditioner
+    p = z
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    for _ in range(cg_iters):
+        Sp = S_apply(p)
+        denom = dot(p, Sp)
+        rz = dot(rr, z)
+        alpha = torch.where(denom.abs() < 1e-20, zero, rz / denom)
+        x = x + alpha * p
+        r_new = rr + (-alpha) * Sp
+        z_new = _bmv(U_inv, r_new)
+        beta = torch.where(rz.abs() < 1e-20, zero, dot(r_new, z_new) / rz)
+        p = z_new + beta * p
+        rr, z = r_new, z_new
+
+    # Back-substitute the point updates: dp = V^-1 (g_p - W^T dc).
+    delta_pts = _bmv(V_inv, g_p - Wt_dot(x))
+    return x, delta_pts
+
+
+# ---------------------------------------------------------------------------
+# LM outer loop
+# ---------------------------------------------------------------------------
+
+
+def run_ba(prob: BAProblem, max_iterations: int = 20, cg_iters: int = 20,
+           damping_init: float = 1e-3, damping_up: float = 4.0,
+           damping_down: float = 2.0, huber_delta: float = 0.0):
+    """Levenberg-Marquardt with accept/reject and multiplicative damping.
+
+    Runs `max_iterations` steps without a host sync. A step is active while
+    the damping is below 1e5 (where the JAX ``while_loop`` would still be
+    running); only active steps update the problem, the damping and the
+    counters. Returns (BAProblem, BAStats).
+    """
+    cost = _cost(prob, huber_delta)
+    cost0 = cost
+    lam = torch.full((), damping_init, dtype=prob.points.dtype, device=prob.points.device)
+    it = torch.zeros((), dtype=torch.int32, device=lam.device)
+    accepted = torch.zeros_like(it)
+    for _ in range(max_iterations):
+        active = lam < 1e5
+        dc, dp = _lm_solve(prob, lam, cg_iters, huber_delta)
+        cam_c = prob.cam_params + dc
+        pts_c = prob.points + dp
+        new_cost = _cost(prob._replace(cam_params=cam_c, points=pts_c), huber_delta)
+        improve = new_cost < cost
+        take = active & improve
+        prob = prob._replace(cam_params=torch.where(take, cam_c, prob.cam_params),
+                             points=torch.where(take, pts_c, prob.points))
+        stepped = torch.where(improve, lam / damping_down, lam * damping_up)
+        lam = torch.where(active, torch.clamp(stepped, 1e-9, 1e6), lam)
+        cost = torch.where(take, new_cost, cost)
+        it = it + active.to(torch.int32)
+        accepted = accepted + take.to(torch.int32)
+    return prob, BAStats(initial_cost=cost0, final_cost=cost, iterations=it,
+                         accepted=accepted)
+
+
+def bundle_adjust_map(state: MapState, max_iterations: int = 20, cg_iters: int = 20,
+                      frozen_first: int = 1, local_window: int = 0,
+                      huber_delta: float = 0.0):
+    """Map -> BA -> map. local_window > 0 = sliding local BA; huber_delta
+    > 0 = robustified residuals (pixels). Returns (MapState, BAStats)."""
+    prob = problem_from_map(state, frozen_first=frozen_first, local_window=local_window)
+    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
+                         huber_delta=huber_delta)
+    return write_back_to_map(state, prob), stats
+
+
+def bundle_adjust_window(state: MapState, window_cams: int = 16,
+                         window_points: int = 16384, max_iterations: int = 8,
+                         cg_iters: int = 12, freeze_cams: int = 2,
+                         huber_delta: float = 0.0):
+    """Sliding-window local BA whose cost is independent of map capacity.
+
+    Takes the last `window_cams` camera slots x the last `window_points`
+    point slots of the grid (starts clamped into range, as
+    ``lax.dynamic_slice`` does), runs the same LM on that sub-grid and
+    writes the result back. The oldest `freeze_cams` window cameras are
+    frozen (they anchor the window and the gauge); window points with fewer
+    than 2 in-window observations are excluded and written back unchanged.
+    Returns (MapState, BAStats).
+    """
+    C = state.poses.shape[0]
+    P = state.points.shape[0]
+    Wc = min(window_cams, C)
+    Wp = min(window_points, P)
+    dev = state.points.device
+    c0 = torch.clamp(state.num_cams - Wc, 0, C - Wc)
+    p0 = torch.clamp(state.num_points - Wp, 0, P - Wp)
+    ci = (c0 + torch.arange(Wc, device=dev)).long()
+    pi = (p0 + torch.arange(Wp, device=dev)).long()
+
+    poses_w = state.poses[ci]
+    cam_valid_w = state.cam_valid[ci]
+    points_w = state.points[pi]
+    point_valid_w = state.point_valid[pi]
+    obs_uv_w = state.obs_uv[pi][:, ci]
+    obs_mask_w = state.obs_mask[pi][:, ci]
+
+    # Points need >= 2 observations inside the window to be determined.
+    obs_w = obs_mask_w & point_valid_w[:, None] & cam_valid_w[None, :]
+    point_ok = point_valid_w & (obs_w.sum(1) >= 2)
+    frozen = (torch.arange(Wc, device=dev) < freeze_cams) | ~cam_valid_w
+
+    rvec, tvec = lie.matrix_to_rt(poses_w)
+    prob = BAProblem(
+        cam_params=torch.cat([rvec, tvec], dim=-1), points=points_w,
+        cam_valid=cam_valid_w, point_valid=point_ok, obs_uv=obs_uv_w,
+        obs_mask=obs_mask_w, K=state.K, frozen=frozen,
+        intr=torch.tensor(_INTR_IDENTITY, dtype=points_w.dtype, device=dev),
+    )
+    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
+                         huber_delta=huber_delta)
+    poses_new = lie.rt_to_matrix(prob.cam_params[:, :3], prob.cam_params[:, 3:])
+    poses_new = torch.where(frozen[:, None, None], poses_w, poses_new)
+    points_new = torch.where(point_ok[:, None], prob.points, points_w)
+    return state._replace(
+        poses=state.poses.index_copy(0, ci, poses_new),
+        points=state.points.index_copy(0, pi, points_new),
+    ), stats

@@ -18,13 +18,16 @@ write, whose winner on CUDA is unspecified.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from sfm_mvs_tpu_torch.models import map_store
+from sfm_mvs_tpu_torch.models import ba as ba_mod
+from sfm_mvs_tpu_torch.models import densify, map_store
 from sfm_mvs_tpu_torch.models.map_store import MapState
+from sfm_mvs_tpu_torch.models.refine import finalize_map
 from sfm_mvs_tpu_torch.models.two_view import bootstrap
 from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift, triangulation
 from sfm_mvs_tpu_torch.ops.sift import Features
@@ -80,10 +83,11 @@ def _track_vector(max_feat: int, slot: torch.Tensor, write: torch.Tensor,
 
 
 def init_from_bootstrap(gen, feats0: Features, feats1: Features, image1_bgr, K,
-                        cfg: SfmConfig):
+                        cfg: SfmConfig, return_track0: bool = False):
     """Run the two-view bootstrap and materialize the initial map.
 
-    Returns (PipelineState, FrameStats).
+    Returns (PipelineState, FrameStats), and with `return_track0` also the
+    track-id vector of frame 0's feature slots.
     """
     tv = bootstrap(gen, feats0, feats1, K, cfg)
     state = map_store.init_map(K, cfg.map, device=K.device)
@@ -101,7 +105,10 @@ def init_from_bootstrap(gen, feats0: Features, feats1: Features, image1_bgr, K,
         reproj_error=tv.reproj_error,
         accepted=torch.ones((), dtype=torch.bool, device=K.device),
     )
-    return PipelineState(map=state, prev_feats=feats1, prev_track=track), stats
+    pstate = PipelineState(map=state, prev_feats=feats1, prev_track=track)
+    if return_track0:
+        return pstate, stats, _track_vector(feats0.xy.shape[0], tv.idx0, tv.valid, pids)
+    return pstate, stats
 
 
 def _select(accepted: torch.Tensor, new, old):
@@ -218,11 +225,13 @@ def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
 
 
 class IncrementalSfM:
-    """Host-side driver: detect -> bootstrap/register, frame by frame.
+    """Host-side driver: detect -> bootstrap/register -> optional BA, frame
+    by frame, then ``finalize``.
 
-    Every tensor lives on `device`. Ported so far: the sequential path of
-    the JAX package's ``IncrementalSfM.run`` with bundle adjustment off (the
-    CLI default, ``BaConfig.enabled=False``).
+    Every tensor lives on `device`. Ported: the sequential path of the JAX
+    package's ``IncrementalSfM.run`` (bundle adjustment every
+    ``cfg.ba.cadence`` frames, global or windowed) and ``finalize`` (compact,
+    cull + global BA, the densification sweep).
     """
 
     def __init__(self, config: Optional[SfmConfig] = None, device="cpu",
@@ -233,22 +242,39 @@ class IncrementalSfM:
         self.checkpoint_every = checkpoint_every
         self.stats: list[dict] = []
 
-    def finalize(self, *args, **kwargs) -> MapState:
-        raise NotImplementedError(
-            "finalize (cull + global BA + densify sweep) is not ported yet "
-            "(ROADMAP A7, A9)")
-
     def _check_supported(self) -> None:
         cfg = self.config
-        if cfg.ba.enabled:
-            raise NotImplementedError(
-                "bundle adjustment (cfg.ba.enabled) is not ported yet (ROADMAP A7)")
         if cfg.bootstrap != "seq":
             raise NotImplementedError(
                 f"bootstrap={cfg.bootstrap!r}: only the sequential bootstrap is "
                 "ported; the view-graph driver waits (ROADMAP A10)")
         if self.checkpoint_dir and self.checkpoint_every:
             raise NotImplementedError("checkpoints are not ported yet (ROADMAP A10)")
+        if cfg.loop_close_pairs > 0:
+            raise NotImplementedError(
+                "loop closure (loop_close_pairs > 0) is not ported yet (ROADMAP A12)")
+        if cfg.ba.refine_intrinsics or cfg.ba.refine_intrinsics_per_camera:
+            raise NotImplementedError(
+                "bundle adjustment of the intrinsics is not ported yet (ROADMAP A12)")
+
+    def _maybe_ba(self, pstate: PipelineState, frame: int) -> PipelineState:
+        # As in the JAX package, BaConfig's damping fields are not passed on:
+        # run_ba's defaults apply (ROADMAP C4).
+        cfg = self.config
+        if not cfg.ba.enabled:
+            return pstate
+        if cfg.ba.cadence > 1 and (frame % cfg.ba.cadence) != 0:
+            return pstate
+        if cfg.ba.local_window > 0:
+            mstate, _ = ba_mod.bundle_adjust_window(
+                pstate.map, window_cams=cfg.ba.local_window,
+                window_points=cfg.ba.window_points,
+                max_iterations=cfg.ba.max_iterations, huber_delta=cfg.ba.huber_delta)
+        else:
+            mstate, _ = ba_mod.bundle_adjust_map(
+                pstate.map, max_iterations=cfg.ba.max_iterations,
+                huber_delta=cfg.ba.huber_delta)
+        return pstate._replace(map=mstate)
 
     def run(self, images_gray: Sequence[np.ndarray],
             images_bgr: Optional[Sequence[np.ndarray]] = None,
@@ -275,16 +301,76 @@ class IncrementalSfM:
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
+        # Per registered camera (rejected frames excluded): features and
+        # images for finalize's densification sweep, and feature-slot ->
+        # point-id track vectors, which finalize keeps remapped for loop
+        # closure (not ported yet, ROADMAP A12).
         t0 = time.perf_counter()
-        f0, f1 = get_feats(0), get_feats(1)
-        pstate, st = init_from_bootstrap(gen, f0, f1, bgr(1), K, cfg)
+        feats = [get_feats(0), get_feats(1)]
+        pstate, st, track0 = init_from_bootstrap(gen, feats[0], feats[1], bgr(1), K, cfg,
+                                                 return_track0=True)
         self._record(1, st, self._wait(t0))
+        self._cam_feats = feats
+        self._cam_bgr = [images_bgr[0], images_bgr[1]]
+        self._cam_gray = [images_gray[0], images_gray[1]]
+        self._cam_tracks = [track0, pstate.prev_track]
         for i in range(2, len(images_gray)):
             t0 = time.perf_counter()
-            pstate, st = register_frame(gen, pstate, get_feats(i), bgr(i), cfg)
+            f = get_feats(i)
+            pstate, st = register_frame(gen, pstate, f, bgr(i), cfg)
+            pstate = self._maybe_ba(pstate, i)
             self._record(i, st, self._wait(t0))
+            if bool(st.accepted):
+                self._cam_feats.append(f)
+                self._cam_bgr.append(images_bgr[i])
+                self._cam_gray.append(images_gray[i])
+                self._cam_tracks.append(pstate.prev_track)
         self.state = pstate
         return pstate.map
+
+    def finalize(self, cull_px: float = 4.0, compact: bool = True,
+                 ba_iterations: int = 0) -> MapState:
+        """Final polish: capacity right-sizing, cull + global BA, then the
+        densification sweep (cfg.sweep.enabled). Updates and returns the map;
+        what it did goes to ``self.finalize_info``.
+
+        compact: BA cost on the dense grid is capacity-proportional, so the
+        map is compacted and shrunk to the smallest power of two (from 1024)
+        holding 1.25x its live points before the global solves; the stored
+        track vectors are remapped.
+        """
+        if ba_iterations <= 0:
+            ba_iterations = 20
+        state = self.state.map
+        if compact:
+            state, remap = map_store.compact_points(state)
+            live = int(state.num_points)
+            cap = 1024
+            while cap < int(1.25 * live):
+                cap *= 2
+            state = map_store.shrink_map(state, cap)
+            P_new = state.points.shape[0]
+
+            def _remap(t):
+                new = torch.where(t >= 0, remap[torch.clamp(t, 0, remap.shape[0] - 1).long()],
+                                  torch.full_like(t, -1))
+                return torch.where(new < P_new, new, torch.full_like(new, -1))
+
+            self._cam_tracks = [_remap(t) for t in self._cam_tracks]
+            self.state = self.state._replace(map=state, prev_track=_remap(self.state.prev_track))
+        state, info = finalize_map(state, max_iterations=ba_iterations, cull_px=cull_px)
+        aligned = len(self._cam_feats) == int(state.num_cams)
+        if self.config.sweep.enabled and not aligned:
+            warnings.warn("densification sweep skipped: stored per-camera features "
+                          "do not cover all registered cameras")
+        if self.config.sweep.enabled and aligned:
+            state, sweep_info = densify.finalize_with_sweep(
+                state, self._cam_feats, self._cam_bgr, self.config,
+                cull_px=cull_px, images_gray=self._cam_gray)
+            info.update(sweep_info)
+        self.finalize_info = info
+        self.state = self.state._replace(map=state)
+        return state
 
     def _wait(self, t0: float) -> float:
         if self.device.type == "cuda":

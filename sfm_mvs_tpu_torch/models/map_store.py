@@ -1,10 +1,10 @@
 """Fixed-capacity structure-of-arrays map: cameras, points, observations.
 
 PyTorch port of ``sfm_mvs_tpu/models/map_store.py`` (the parts the
-incremental path runs). Every table has a static capacity and a validity
-mask; observations are a dense (max_points, max_cameras) grid. Appends are
-masked writes: rows that the JAX package routes out of range (and
-``mode="drop"`` discards) are filtered out before the write, since torch
+incremental path and finalize run). Every table has a static capacity and
+a validity mask; observations are a dense (max_points, max_cameras) grid.
+Appends are masked writes: rows that the JAX package routes out of range
+(and ``mode="drop"`` discards) are kept out of the write, since torch
 raises on out-of-range indices. The functions return new states and do not
 modify their inputs (the driver relies on that to reject a frame).
 """
@@ -57,13 +57,16 @@ def num_observations(state: MapState) -> torch.Tensor:
 
 def _set_rows(dst: torch.Tensor, index: torch.Tensor, values: torch.Tensor,
               keep: torch.Tensor) -> torch.Tensor:
-    """Copy of `dst` with dst[index[i]] = values[i] for rows where `keep`.
+    """Copy of `dst` with dst[index[i]] = values[i] for rows where `keep`
+    and 0 <= index[i] < len(dst).
 
-    The kept indices must be distinct and in range (the callers' invariant).
+    The other rows are written to a spare row that is then cut off, so no
+    host sync filters them. The kept indices must be distinct.
     """
-    out = dst.clone()
-    out[index[keep].long()] = values[keep].to(dst.dtype)
-    return out
+    n = dst.shape[0]
+    dest = torch.where(keep & (index >= 0) & (index < n), index, torch.full_like(index, n))
+    out = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    return out.index_copy_(0, dest.long(), values.to(dst.dtype))[:-1]
 
 
 def append_camera(state: MapState, pose: torch.Tensor):
@@ -99,12 +102,11 @@ def append_points(state: MapState, X, colors, valid):
     point_ids[i] = the map index of row i, or -1 where ~valid."""
     capacity = state.points.shape[0]
     dest, new_count = _append_indices(state.num_points, valid, capacity)
-    keep = dest < capacity
     return (
         state._replace(
-            points=_set_rows(state.points, dest, X, keep),
-            colors=_set_rows(state.colors, dest, colors, keep),
-            point_valid=_set_rows(state.point_valid, dest, valid, keep),
+            points=_set_rows(state.points, dest, X, valid),
+            colors=_set_rows(state.colors, dest, colors, valid),
+            point_valid=_set_rows(state.point_valid, dest, valid, valid),
             num_points=new_count,
         ),
         torch.where(valid, dest, torch.full_like(dest, -1)),
@@ -116,10 +118,12 @@ def append_observations(state: MapState, cam_id, point_ids, uv, valid) -> MapSta
 
     Duplicate valid point ids (two feature slots claiming one track) are
     resolved deterministically, as in the JAX package: the lowest slot wins
-    (a scatter-min of the slot index, then a gather).
+    (a scatter-min of the slot index, then a gather). The write goes to the
+    flattened (P * C) grid through ``_set_rows``, so no host sync filters
+    the rejected rows.
     """
     M = point_ids.shape[0]
-    P = state.points.shape[0]
+    P, C = state.obs_mask.shape
     dev = point_ids.device
     # Ids past the capacity (append_points returns them for rows that
     # overflowed it) are never written, as in the JAX package.
@@ -129,10 +133,75 @@ def append_observations(state: MapState, cam_id, point_ids, uv, valid) -> MapSta
     winner = torch.full((P + 1,), M, dtype=torch.int64, device=dev)
     winner = winner.scatter_reduce(0, dest, slot, reduce="amin")
     cam = torch.as_tensor(cam_id, device=dev).long()
-    keep = (dest < P) & (winner[dest] == slot) & (cam < state.obs_mask.shape[1])
-    rows = dest[keep]
-    obs_uv = state.obs_uv.clone()
-    obs_mask = state.obs_mask.clone()
-    obs_uv[rows, cam] = uv[keep].to(obs_uv.dtype)
-    obs_mask[rows, cam] = True
-    return state._replace(obs_uv=obs_uv, obs_mask=obs_mask)
+    keep = (dest < P) & (winner[dest] == slot) & (cam < C)
+    flat = dest * C + cam
+    obs_uv = _set_rows(state.obs_uv.reshape(P * C, 2), flat, uv, keep)
+    obs_mask = _set_rows(state.obs_mask.reshape(P * C), flat, keep, keep)
+    return state._replace(obs_uv=obs_uv.reshape(P, C, 2), obs_mask=obs_mask.reshape(P, C))
+
+
+def compact_points(state: MapState):
+    """Move valid points to the front of the point axis. Returns
+    (state, remap) where remap[i] is point i's new index (-1 for dropped
+    slots): callers holding track ids must remap them.
+
+    BA cost on the dense (P, C) grid is capacity-proportional, so compacting
+    (then ``shrink_map``) right-sizes the grid before the global solves."""
+    valid = state.point_valid
+    offs = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+
+    def compact(x):
+        return _set_rows(torch.zeros_like(x), offs, x, valid)
+
+    return (
+        state._replace(
+            points=compact(state.points), colors=compact(state.colors),
+            point_valid=compact(valid), obs_uv=compact(state.obs_uv),
+            obs_mask=compact(state.obs_mask), num_points=valid.sum(dtype=torch.int32),
+        ),
+        torch.where(valid, offs, torch.full_like(offs, -1)),
+    )
+
+
+def shrink_map(state: MapState, new_max_points: int) -> MapState:
+    """Slice the point axis down to `new_max_points` (after compact_points;
+    every live point must fit)."""
+    if new_max_points >= state.points.shape[0]:
+        return state
+    if int(state.num_points) > new_max_points:
+        raise ValueError(f"{int(state.num_points)} live points do not fit in "
+                         f"{new_max_points}")
+    return state._replace(
+        points=state.points[:new_max_points],
+        colors=state.colors[:new_max_points],
+        point_valid=state.point_valid[:new_max_points],
+        obs_uv=state.obs_uv[:new_max_points],
+        obs_mask=state.obs_mask[:new_max_points],
+    )
+
+
+def grow_map(state: MapState, new_max_points: int) -> MapState:
+    """A copy with the point capacity enlarged to `new_max_points` by zero
+    padding; point indices (and track ids held outside) stay valid."""
+    pad = new_max_points - state.points.shape[0]
+    if pad <= 0:
+        return state
+
+    def grow(x):
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    return state._replace(
+        points=grow(state.points), colors=grow(state.colors),
+        point_valid=grow(state.point_valid), obs_uv=grow(state.obs_uv),
+        obs_mask=grow(state.obs_mask),
+    )
+
+
+def update_points(state: MapState, point_ids, X, valid) -> MapState:
+    """Overwrite existing points (BA write-back)."""
+    return state._replace(points=_set_rows(state.points, point_ids, X, valid))
+
+
+def update_poses(state: MapState, cam_ids, poses, valid) -> MapState:
+    """Overwrite existing camera poses (BA write-back)."""
+    return state._replace(poses=_set_rows(state.poses, cam_ids, poses, valid))

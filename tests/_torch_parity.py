@@ -86,3 +86,49 @@ def camera_scene(rng, n=200, noise_px=0.3, outlier_frac=0.3, planar=False):
 
 def normalize(uv, K) -> np.ndarray:
     return ((uv - K[[0, 1], [2, 2]]) / K[[0, 1], [0, 1]]).astype(np.float32)
+
+
+def ba_map(seed=0, obs_noise=0.0, C=5, P=300, point_noise=0.05, pose_noise=0.02):
+    """tests/test_ba.py's bundle-adjustment problem as a JAX MapState:
+    C cameras over a 50-degree arc observing P points in MapConfig(8, 512),
+    points perturbed by `point_noise`, cameras 1.. by `pose_noise` rad (and
+    3x that in translation), observations exact or with `obs_noise` px."""
+    import jax.numpy as jnp
+
+    from sfm_mvs_tpu.models import map_store as jms
+    from sfm_mvs_tpu.ops import lie as jlie
+    from sfm_mvs_tpu.utils.config import MapConfig
+    from sfm_mvs_tpu.utils.synthetic import make_scene
+
+    rng = np.random.default_rng(seed)
+    scene = make_scene(num_points=P, num_cameras=C, arc_degrees=50)
+    state = jms.init_map(jnp.asarray(scene.K), MapConfig(max_cameras=8, max_points=512))
+    for c in range(C):
+        state, _ = jms.append_camera(state, jnp.asarray(scene.Rt[c]))
+    Xn = scene.points + rng.normal(scale=point_noise, size=(P, 3)).astype(np.float32)
+    state, pids = jms.append_points(state, jnp.asarray(Xn), jnp.zeros((P, 3)),
+                                    jnp.ones(P, dtype=bool))
+    for c in range(C):
+        uv, _ = scene.project(c)
+        if obs_noise:
+            uv = uv + rng.normal(scale=obs_noise, size=uv.shape)
+        state = jms.append_observations(state, c, pids, jnp.asarray(uv.astype(np.float32)),
+                                        jnp.ones(P, dtype=bool))
+    poses = np.asarray(state.poses).copy()
+    for c in range(1, C):
+        rv, tv = jlie.matrix_to_rt(jnp.asarray(scene.Rt[c]))
+        rv = np.asarray(rv) + rng.normal(scale=pose_noise, size=3)
+        tv = np.asarray(tv) + rng.normal(scale=pose_noise * 3, size=3)
+        poses[c] = np.asarray(jlie.rt_to_matrix(jnp.asarray(rv.astype(np.float32)),
+                                                jnp.asarray(tv.astype(np.float32))))
+    return state._replace(poses=jnp.asarray(poses))
+
+
+def jax_and_port(jstate):
+    """(JAX NamedTuple, the port's) holding the same numbers."""
+    import jax.numpy as jnp
+
+    from sfm_mvs_tpu_torch.utils import convert
+
+    leaves = type(jstate)(*[np.asarray(a) for a in jstate])
+    return type(jstate)(*[jnp.asarray(a) for a in leaves]), convert.to_torch(leaves)

@@ -1,5 +1,6 @@
 """The ported slice as a whole against the JAX package: detect -> match ->
-two-view bootstrap -> per-frame PnP registration, BA off.
+two-view bootstrap -> per-frame PnP registration, with BA off and on, and
+finalize with the densification sweep.
 
 Staircase at 320x240, 4 cameras over 20 degrees; max_features=512,
 num_octaves=3, contrast 0.015, ratio 0.75, 256 RANSAC iterations,
@@ -13,7 +14,13 @@ MapConfig(8, 4096).
 (b) ``IncrementalSfM.run`` in both packages registers every camera with
     ATE < 0.05, rotation error < 1 deg and every frame's reprojection error
     < 1 px (the thresholds of tests/test_pipeline.py).
+(c) The same with a global BA after every frame, then ``finalize()`` with
+    the densification sweep: both reach ATE < 0.05 and a final cost below
+    1 px^2, with point counts within 10% (RANSAC draws differ, so the maps
+    differ by a few points before the sweep).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -111,15 +118,38 @@ def test_incremental_run_both_packages(scene):
     assert sfm.stats[0]["matches"] == jsfm.stats[0]["matches"]
 
 
+def test_ba_and_finalize_both_packages(scene):
+    """``ba.enabled`` (a global BA after every frame), then ``finalize()``
+    with the sweep grown to 8192 points, in both packages."""
+    imgs, _, Rt_gt, cfg, jcfg = scene
+
+    def with_ba(c, mod):
+        return dataclasses.replace(c, ba=mod.BaConfig(enabled=True),
+                                   sweep=mod.SweepConfig(enabled=True, grow_points=8192))
+
+    results = []
+    for sfm in (jinc.IncrementalSfM(with_ba(jcfg, jconfig)),
+                incremental.IncrementalSfM(with_ba(cfg, config))):
+        run = sfm.run(imgs)
+        _check_run(N(run.poses)[N(run.cam_valid)], Rt_gt, sfm.stats)
+        state = sfm.finalize()
+        assert evaluate.ate_rmse(N(state.poses)[N(state.cam_valid)], Rt_gt) < 0.05
+        assert sfm.finalize_info["final_cost"] < 1.0
+        assert state.points.shape[0] == 8192
+        n_points = int(N(state.point_valid).sum())
+        assert n_points > int(N(run.point_valid).sum())  # the sweep added points
+        results.append(n_points)
+    n_jax, n_port = results
+    assert abs(n_port - n_jax) <= 0.1 * n_jax
+
+
 def test_unported_options_raise(scene):
     imgs, _, _, cfg, _ = scene
-    import dataclasses
 
-    for bad in (dataclasses.replace(cfg, ba=config.BaConfig(enabled=True)),
-                dataclasses.replace(cfg, bootstrap="auto")):
+    for bad in (dataclasses.replace(cfg, bootstrap="auto"),
+                dataclasses.replace(cfg, loop_close_pairs=2),
+                dataclasses.replace(cfg, ba=config.BaConfig(enabled=True, refine_intrinsics=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             incremental.IncrementalSfM(bad).run(imgs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         incremental.IncrementalSfM(cfg, checkpoint_dir="x", checkpoint_every=1).run(imgs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        incremental.IncrementalSfM(cfg).finalize()
