@@ -28,16 +28,38 @@ Phases, each printing one line (any failure exits non-zero):
    below phase 4's, sub-pixel reprojection, a final cost below 1 px^2,
    ATE after finalize below 0.05, at least 15,000 finite points and 167
    K1 launches.
-7. the last line: {"ok": true, "device": {...}}.
+7. CLI: the frames written as 8-bit PNGs, then the port's ``cli.main`` in
+   this process with ``--bootstrap auto --ba --finalize --sweep --densify``
+   on the card; checks the outputs (57/57 poses in pose.csv at ATE < 0.05,
+   >= 15,000 map points after finalize with at least half of them kept by
+   sparse.ply's cleaning, >= 1,000,000 finite dense vertices, the metrics
+   events) and that every match went through K1 (view-graph pairs +
+   bootstrap + registrations + swept pairs); prints each stage's wall.
+8. resume: the CLI with ``--bootstrap seq --checkpoint-every 20``, then
+   again with ``--resume`` from frame 40 into the same output; the two
+   pose.csv files must be equal byte for byte.
+9. MVS against ground truth (benchmarks/mvs_full.py's recipe): phase 5's
+   map before its sweep, ``refine.finalize_map(max_iterations=20)``, then
+   ``mvs.densify_map`` with the GT harness's settings; checks depth
+   relative error (median < 0.01, RMS < 0.03), coverage of GT-valid pixels
+   > 0.65 and finite points, beside the v5e quality record.
+10. the last line: {"ok": true, "device": {...}}.
+
+``--profile`` adds, after phase 9, torch.profiler over one
+``mvs._plane_sweep_batch`` call of 4 reference frames.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -289,7 +311,8 @@ def _pose_quality(state, Rt_gt):
 
 
 def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
-    """bench.py's path on the card: per-frame BA, then the sweep."""
+    """bench.py's path on the card: per-frame BA, then the sweep. Returns
+    K1's launches and the map before the sweep."""
     from sfm_mvs_tpu_torch.models import map_store
     from sfm_mvs_tpu_torch.ops import matching_cuda
 
@@ -310,6 +333,7 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
     wall = statistics.mean(r["wall_s"] for r in warm)
     ba_ms = statistics.median(r["ba_ms"] for r in warm)
 
+    before_sweep = state
     t0 = time.perf_counter()
     state, info = bench_sweep(stack8, state, cfg)
     torch.cuda.synchronize()
@@ -355,7 +379,7 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
         raise AssertionError(f"{len(pts)} points after the sweep, expected >= 15000")
     if launches != expected:
         raise AssertionError(f"K1 launched {launches} times, expected {expected}")
-    return launches
+    return launches, before_sweep
 
 
 def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
@@ -502,6 +526,282 @@ def _profile_window(fn):
     return wall, busy, n_ops, prof
 
 
+class StageClock:
+    """Synchronized host-clock times of named functions while active.
+
+    Each (owner, attribute, key) in `targets` is wrapped so that every call
+    synchronizes the device before and after and appends its seconds to
+    ``calls[key]``; the originals come back on exit. Several attributes may
+    share one key."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls: dict[str, list[float]] = {}
+        self._saved = []
+
+    def total(self, key) -> float:
+        return sum(self.calls.get(key, []))
+
+    def _wrap(self, fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.setdefault(key, []).append(time.perf_counter() - t)
+            return out
+
+        return wrapper
+
+    def __enter__(self):
+        for owner, name, key in self.targets:
+            fn = owner.__dict__[name]
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """Write an (H, W) uint8 image as an 8-bit grayscale PNG (numpy + zlib:
+    one IHDR, one IDAT of unfiltered rows, IEND)."""
+    h, w = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.hstack([np.zeros((h, 1), np.uint8), img.astype(np.uint8)])  # filter 0
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+FRAME_DIR = "chiprun_out/cli_frames"
+
+
+def write_frames(stack8) -> None:
+    """The staged uint8 frames as PNGs: the CLI decodes exactly bench.py's input."""
+    shutil.rmtree(FRAME_DIR, ignore_errors=True)
+    os.makedirs(FRAME_DIR)
+    for i, img in enumerate(stack8.cpu().numpy()):
+        write_png_gray(f"{FRAME_DIR}/frame_{i:03d}.png", img)
+
+
+def cli_args(out: str, *flags: str) -> list[str]:
+    """The CLI on the phase-4 scene and frontend settings, on the card."""
+    W, H = SCENE["image_size"]
+    f = SCENE["focal"]
+    return ["--image-dir", FRAME_DIR, "--out", out, "--fx", str(f), "--fy", str(f),
+            "--cx", str(W / 2.0), "--cy", str(H / 2.0), "--downscale", "1",
+            "--max-features", "4096", "--lowe-ratio", "0.75", "--contrast-threshold", "0.012",
+            "--max-cameras", "64", "--max-points", "16384", "--device", "cuda", *flags]
+
+
+def _pose_csv_quality(path, Rt_gt):
+    from sfm_mvs_tpu_torch.utils import evaluate, io
+
+    n_vals = len(np.loadtxt(path))
+    K, P = io.load_pose_csv(path)
+    poses = io.poses_from_projections(K, P).astype(np.float32)
+    ate = evaluate.ate_rmse(poses, Rt_gt[:len(poses)]) if len(poses) >= 3 else float("inf")
+    return n_vals, len(poses), ate
+
+
+def phase_cli(Rt_gt):
+    """The port's CLI in this process, so K1's counter covers its run."""
+    from sfm_mvs_tpu_torch import cli, native
+    from sfm_mvs_tpu_torch.models import incremental, mvs
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.utils import io
+    from sfm_mvs_tpu_torch.utils.config import SfmConfig, SweepConfig
+
+    out = "chiprun_out/cli"
+    shutil.rmtree(out, ignore_errors=True)
+    args = cli_args(out, "--bootstrap", "auto", "--ba", "--ba-iterations", "8", "--finalize",
+                    "--sweep", "--sweep-contrast", "0.0025", "--densify", "--no-gif")
+    Sfm = incremental.IncrementalSfM
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with StageClock([
+        (native.ImageLoader, "get", "image load"), (Sfm, "run", "run"),
+        (Sfm, "finalize", "finalize"), (mvs, "_depth_ranges", "MVS pass 1"),
+        (mvs, "_plane_sweep_batch", "MVS pass 1"), (mvs, "_fuse_batch", "MVS pass 2"),
+        (io, "to_ply", "PLY writes"),
+    ]) as clock:
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = matching_cuda.launches
+
+    n = len(os.listdir(FRAME_DIR))
+    n_vals, n_poses, ate = _pose_csv_quality(f"{out}/pose.csv", Rt_gt)
+    sparse, _ = io.read_ply(f"{out}/sparse.ply")
+    dense, _ = io.read_ply(f"{out}/dense.ply")
+    os.remove(f"{out}/dense.ply")  # ~150 MB of ASCII; the copy back holds 64 MiB
+    with open(f"{out}/metrics.jsonl") as fh:
+        records = [json.loads(line) for line in fh]
+    events = sorted({r["event"] for r in records})
+    pair = next(r["pair"] for r in records if r["event"] == "bootstrap_auto")
+    map_points = next(r["points"] for r in records if r["event"] == "finalize")
+    window = SfmConfig().view_graph_window
+    graph_pairs = sum(min(window, n - 1 - i) for i in range(n))
+    swept = sum(n - s for s in SweepConfig().pair_strides)
+    expected = graph_pairs + 1 + (n - 2) + swept
+    log(f"[cli] rc {rc}; bootstrap pair {tuple(pair)}; pose.csv {n_vals} values "
+        f"({n_poses} poses) ATE {ate:.6f}; map points after finalize {map_points}, "
+        f"sparse.ply {len(sparse)} vertices; dense.ply {len(dense)} vertices; metrics "
+        f"events {events}")
+    log(f"[cli] K1 launches {launches} (expected {expected} = {graph_pairs} view-graph "
+        f"pairs (window {window}) + 1 bootstrap + {n - 2} registrations + {swept} swept pairs)")
+    log("[cli] stage wall (synchronized host clock): "
+        + ", ".join(f"{k} {clock.total(k):.2f} s" for k in
+                    ("image load", "run", "finalize", "MVS pass 1", "MVS pass 2", "PLY writes"))
+        + f"; cli.main total {total_s:.2f} s")
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    if n_vals != 9 + n * 12 or not ate < 0.05:
+        raise AssertionError(f"pose.csv: {n_vals} values (expected {9 + n * 12}), ATE {ate}")
+    # to_ply keeps the points within mean centroid distance + 1.5 map units
+    # (the reference's cleaning); at this map's scale (its unit is the
+    # ~0.14-unit bootstrap baseline) that is about the nearer 60%.
+    if map_points < 15000 or len(sparse) < 0.5 * map_points:
+        raise AssertionError(f"{map_points} map points after finalize (>= 15000 expected), "
+                             f"{len(sparse)} of them in sparse.ply")
+    if len(dense) < 1_000_000 or not np.isfinite(dense).all():
+        raise AssertionError(f"dense.ply: {len(dense)} vertices (>= 1e6 expected) or non-finite")
+    missing = {"frame", "ba", "bootstrap_auto", "finalize"} - set(events)
+    if missing:
+        raise AssertionError(f"metrics.jsonl lacks events {sorted(missing)}")
+    if launches != expected:
+        raise AssertionError(f"K1 launched {launches} times, expected {expected}")
+    return launches
+
+
+def phase_resume():
+    """Checkpoint every 20 frames, then resume from the last one into the
+    same output: the resumed run must write the same pose.csv."""
+    from sfm_mvs_tpu_torch import cli
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.utils import checkpoint
+
+    out = "chiprun_out/resume"
+    shutil.rmtree(out, ignore_errors=True)
+    args = cli_args(out, "--bootstrap", "seq", "--checkpoint-every", "20", "--no-gif")
+    n = len(os.listdir(FRAME_DIR))
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    rc_a = cli.main(args)
+    run_a_s = time.perf_counter() - t0
+    with open(f"{out}/pose.csv", "rb") as fh:
+        pose_a = fh.read()
+    latest = checkpoint.latest_checkpoint(f"{out}/checkpoints")
+    t0 = time.perf_counter()
+    rc_b = cli.main(args + ["--resume"])
+    run_b_s = time.perf_counter() - t0
+    with open(f"{out}/pose.csv", "rb") as fh:
+        pose_b = fh.read()
+    launches = matching_cuda.launches
+    expected = (n - 1) + (n - 1 - 40)
+    log(f"[resume] run A rc {rc_a} in {run_a_s:.1f} s; run B (--resume from {latest}) "
+        f"rc {rc_b} in {run_b_s:.1f} s; pose.csv {len(pose_a)} bytes, equal: "
+        f"{pose_a == pose_b}; K1 launches {launches} (expected {expected})")
+    if rc_a != 0 or rc_b != 0:
+        raise AssertionError(f"cli.main returned {rc_a}, {rc_b}")
+    if latest is None or not latest.endswith("frame_00040.npz"):
+        raise AssertionError(f"latest checkpoint {latest}, expected frame_00040.npz")
+    if pose_a != pose_b:
+        raise AssertionError("the resumed run's pose.csv differs from the uninterrupted run's")
+    if launches != expected:
+        raise AssertionError(f"K1 launched {launches} times, expected {expected}")
+    shutil.rmtree(FRAME_DIR)
+    return launches
+
+
+MVS_RECORD = dict(rel_rms=0.01421, median=0.00299, under_1pct=0.8919, coverage_gt=0.8008,
+                  points=5353610)  # artifacts/MVS_r05.json (v5e; quality only)
+
+
+def phase_mvs(stack8, state, Rt_gt, gt_depths):
+    """benchmarks/mvs_full.py's recipe on phase 5's map before its sweep."""
+    from sfm_mvs_tpu_torch.models import mvs, refine
+    from sfm_mvs_tpu_torch.utils import evaluate
+
+    state, _ = refine.finalize_map(state, max_iterations=20)
+    n = int(state.cam_valid.sum())
+    poses = state.poses.cpu().numpy()[:n]
+    s_align, _, _ = evaluate.umeyama_alignment(evaluate.camera_centers(poses),
+                                               evaluate.camera_centers(Rt_gt[:n]))
+    grays = [gray_of(stack8, i) for i in range(n)]
+    bgrs = [bgr_of(stack8, i) for i in range(n)]
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock([(mvs, "_depth_ranges", "pass 1"), (mvs, "_plane_sweep_batch", "pass 1"),
+                     (mvs, "_fuse_batch", "pass 2")]) as clock:
+        pts, _, dms = mvs.densify_map(
+            grays, state, num_depths=64, stride=2, images_bgr=bgrs, geo_rel_tol=0.02,
+            edge_trim_radius=6, geo_min_consistent=2, free_space_rel=0.05, min_conf=0.5,
+            return_depth_maps=True)
+    rels, covs_gt = [], []
+    for r, dm in dms.items():
+        d_est = dm.depth.cpu().numpy() * s_align
+        d_gt = gt_depths[r]
+        gt_ok = d_gt > 0.1
+        ok = dm.valid.cpu().numpy() & gt_ok
+        covs_gt.append(ok.sum() / max(gt_ok.sum(), 1))
+        rels.append(np.abs(d_est[ok] - d_gt[ok]) / d_gt[ok])
+    rel = np.concatenate(rels)
+    rms, med = float(np.sqrt(np.mean(rel ** 2))), float(np.median(rel))
+    under, cov = float(np.mean(rel < 0.01)), float(np.mean(covs_gt))
+    rec = MVS_RECORD
+    log(f"[mvs] depth rel-RMS {rms:.5f} (v5e record: {rec['rel_rms']})  median {med:.5f} "
+        f"(v5e record: {rec['median']})  under 1% {under:.4f} (v5e record: {rec['under_1pct']})")
+    log(f"[mvs] coverage of GT-valid pixels {cov:.4f} (v5e record: {rec['coverage_gt']})  "
+        f"dense points {len(pts)} (v5e record: {rec['points']})  scale {s_align:.5f}")
+    log(f"[mvs] pass 1 {clock.total('pass 1'):.2f} s, pass 2 {clock.total('pass 2'):.2f} s "
+        f"(synchronized host clock, {n} reference frames, batches of 4); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not med < 0.01 or not rms < 0.03:
+        raise AssertionError(f"depth error median {med} / rel-RMS {rms} above 0.01 / 0.03")
+    if not cov > 0.65:
+        raise AssertionError(f"coverage of GT-valid pixels {cov} <= 0.65")
+    if not np.isfinite(pts).all():
+        raise AssertionError("non-finite dense points")
+    return state
+
+
+def profile_sweep(stack8, state):
+    """torch.profiler over one ``mvs._plane_sweep_batch`` call of 4 reference
+    frames (10..13, each with its 4 sweep neighbors), as densify_map makes it."""
+    from sfm_mvs_tpu_torch.models import mvs
+
+    refs = [10, 11, 12, 13]
+    nbrs = [[r - 2, r - 1, r + 1, r + 2] for r in refs]
+    lo, hi = mvs._depth_ranges(state)
+    idx = torch.as_tensor(refs, device=DEVICE)
+    nidx = torch.as_tensor(nbrs, device=DEVICE)
+    imgs = stack8.float() / 255.0
+
+    def sweep():
+        return mvs._plane_sweep_batch(imgs[idx], imgs[nidx], state.poses[idx],
+                                      state.poses[nidx], state.K, lo[idx], hi[idx])
+
+    sweep()
+    wall, busy, n_ops, prof = _profile_window(sweep)
+    summary = (f"[profile] one _plane_sweep_batch of 4 refs at {tuple(imgs.shape[1:])}, "
+               f"4 neighbors, 64 depths: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+               f"idle share {1 - busy / wall:.3f}, {n_ops} device ops")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
+                                      max_name_column_width=70)
+    with open("chiprun_out/profile.txt", "a") as fh:
+        fh.write("\n".join([summary, table]) + "\n")
+    log(summary)
+
+
 def phase_profile(imgs, cfg, n_frames=10):
     """Where the time goes (``--profile`` only): the synchronized wall time
     of each stage of bench.py's path over its first ``n_frames`` frames and
@@ -511,46 +811,27 @@ def phase_profile(imgs, cfg, n_frames=10):
     from sfm_mvs_tpu_torch.models import ba, densify, incremental, map_store, refine
     from sfm_mvs_tpu_torch.ops import matching, pnp, ransac, sift, triangulation
 
-    stages = {}
-    originals = []
-
-    def timed(mod, name, key):
-        fn = getattr(mod, name)
-        originals.append((mod, name, fn))
-
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stages.setdefault(key, []).append(time.perf_counter() - t)
-            return out
-
-        setattr(mod, name, wrapper)
-
     stack8 = stage_u8(imgs[:n_frames])
-    timed(sift, "detect_and_compute", "detect")
-    timed(matching, "match_with_config", "match")
-    timed(ransac, "ransac_pnp", "ransac_pnp")
-    timed(pnp, "refine_pose_gauss_newton", "pnp_polish (2 per frame)")
-    timed(triangulation, "triangulate_euclidean", "triangulate")
-    timed(map_store, "append_points", "append_points")
-    timed(map_store, "append_observations", "append_observations (4 per frame)")
-    timed(incremental, "register_frame", "register_frame")
-    timed(ba, "bundle_adjust_map", "ba.bundle_adjust_map (8 LM iterations)")
-    timed(ba, "_lm_solve", "ba._lm_solve (one LM iteration's solve)")
-    timed(densify, "sweep_pair", "densify.sweep_pair")
-    timed(refine, "cull_map", "refine.cull_map")
-    try:
+    with StageClock([
+        (sift, "detect_and_compute", "detect"),
+        (matching, "match_with_config", "match"),
+        (ransac, "ransac_pnp", "ransac_pnp"),
+        (pnp, "refine_pose_gauss_newton", "pnp_polish (2 per frame)"),
+        (triangulation, "triangulate_euclidean", "triangulate"),
+        (map_store, "append_points", "append_points"),
+        (map_store, "append_observations", "append_observations (4 per frame)"),
+        (incremental, "register_frame", "register_frame"),
+        (ba, "bundle_adjust_map", "ba.bundle_adjust_map (8 LM iterations)"),
+        (ba, "_lm_solve", "ba._lm_solve (one LM iteration's solve)"),
+        (densify, "sweep_pair", "densify.sweep_pair"),
+        (refine, "cull_map", "refine.cull_map"),
+    ]) as clock:
         pstate, records = bench_frames(stack8, cfg)
         bench_sweep(stack8, pstate.map, cfg)
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
     frame_ms = [r["wall_s"] * 1e3 for r in records[1:]]
     lines = [f"bench path, frames 2..{n_frames - 1} wall ms incl. BA: "
              + ", ".join(f"{t:.1f}" for t in frame_ms)]
-    for key, secs in stages.items():
+    for key, secs in clock.calls.items():
         warm = secs[2:] if len(secs) > 4 else secs
         lines.append(f"{key:42s} n={len(secs):4d} median {statistics.median(warm) * 1e3:8.2f} ms")
 
@@ -601,6 +882,7 @@ def phase_profile(imgs, cfg, n_frames=10):
 
 
 def main(argv) -> int:
+    t_start = time.time()
     smi = phase_device()
     import os
 
@@ -610,15 +892,23 @@ def main(argv) -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     build_s = phase_build()
     t0 = time.time()
-    imgs, Rt_gt, _ = render_staircase_sequence(**SCENE)
+    imgs, Rt_gt, _, gt_depths = render_staircase_sequence(**SCENE, return_depth=True)
     log(f"[scene] rendered {len(imgs)} frames {SCENE['image_size']} in {time.time() - t0:.1f}s")
     cfg = main_config()
     worst, ms_k, ms_p = phase_k1(sift_pair(imgs, cfg))
     launches, ate_ba_off = phase_main(imgs, Rt_gt, cfg)
-    launches += phase_bench(imgs, Rt_gt, cfg, ate_ba_off)
+    n, bench_map = phase_bench(imgs, Rt_gt, cfg, ate_ba_off)
+    launches += n
     launches += phase_driver(imgs, Rt_gt, cfg, ate_ba_off)
+    stack8 = stage_u8(imgs)
+    write_frames(stack8)
+    launches += phase_cli(Rt_gt)
+    launches += phase_resume()
+    mvs_map = phase_mvs(stack8, bench_map, Rt_gt, gt_depths)
     if "--profile" in argv:
         phase_profile(imgs, cfg)
+        profile_sweep(stack8, mvs_map)
+    log(f"[total] {time.time() - t_start:.1f} s, kernel build included")
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "knn2", "route": "cuda", "source": "sfm_mvs_tpu_torch/csrc/knn2.cu",

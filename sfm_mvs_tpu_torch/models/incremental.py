@@ -123,12 +123,16 @@ def _select(accepted: torch.Tensor, new, old):
 
 
 def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
-                   cfg: SfmConfig):
-    """Register one new frame against the map, matched to the previous frame
-    (the most recently appended camera).
+                   cfg: SfmConfig, anchor_cam=None):
+    """Register one new frame against the map, matched to the frame whose
+    features are ``pstate.prev_feats``.
 
-    Returns (PipelineState, FrameStats); a frame with too few PnP inliers
-    is rejected and the input state returned unchanged.
+    anchor_cam: camera id of that frame. Defaults to the most recently
+    appended camera (the sequential sliding window); the auto-bootstrap
+    driver passes it, since its registration order walks away from the
+    bootstrap pair in both directions. Returns (PipelineState, FrameStats);
+    a frame with too few PnP inliers is rejected and the input state
+    returned unchanged.
     """
     fc, rc = cfg.frontend, cfg.ransac
     state = pstate.map
@@ -153,7 +157,8 @@ def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
         threshold_px=rc.pnp_threshold_px, iters=rc.pnp_iters, use_p3p=rc.pnp_use_p3p)
     pose_new = pnp_res.model
     state, cam_new = map_store.append_camera(state, pose_new)
-    prev_cam = cam_new - 1
+    prev_cam = cam_new - 1 if anchor_cam is None else torch.as_tensor(
+        anchor_cam, dtype=cam_new.dtype, device=cam_new.device)
     pose_prev = state.poses[prev_cam.long()]
 
     # 4. Observations of existing points in the new frame (PnP inliers).
@@ -224,32 +229,42 @@ def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
     return _select(accepted, new_pstate, pstate), stats
 
 
+def frame_generator(device, seed: int, frame: int) -> torch.Generator:
+    """The random stream of one frame: a generator seeded from (seed, frame).
+
+    Frame i draws the same numbers whether the run started at frame 0 or
+    resumed from a checkpoint (the JAX driver re-splits its key for the
+    same effect).
+    """
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([seed, frame]).generate_state(1, np.uint64)[0]))
+    return gen
+
+
 class IncrementalSfM:
     """Host-side driver: detect -> bootstrap/register -> optional BA, frame
     by frame, then ``finalize``.
 
-    Every tensor lives on `device`. Ported: the sequential path of the JAX
-    package's ``IncrementalSfM.run`` (bundle adjustment every
-    ``cfg.ba.cadence`` frames, global or windowed) and ``finalize`` (compact,
-    cull + global BA, the densification sweep).
+    Every tensor lives on `device`. The JAX package's ``IncrementalSfM``:
+    the sequential bootstrap on frames (0, 1) or the view-graph bootstrap
+    (``bootstrap="auto"``), bundle adjustment every ``cfg.ba.cadence``
+    frames (global or windowed), a checkpoint every ``checkpoint_every``
+    frames and resume from one, per-frame records to ``metrics`` (a
+    ``utils.metrics.MetricsLogger``), and ``finalize`` (compact, cull +
+    global BA, the densification sweep).
     """
 
-    def __init__(self, config: Optional[SfmConfig] = None, device="cpu",
+    def __init__(self, config: Optional[SfmConfig] = None, device="cpu", metrics=None,
                  checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0):
         self.config = config or SfmConfig()
         self.device = torch.device(device)
+        self.metrics = metrics
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.stats: list[dict] = []
 
     def _check_supported(self) -> None:
         cfg = self.config
-        if cfg.bootstrap != "seq":
-            raise NotImplementedError(
-                f"bootstrap={cfg.bootstrap!r}: only the sequential bootstrap is "
-                "ported; the view-graph driver waits (ROADMAP A10)")
-        if self.checkpoint_dir and self.checkpoint_every:
-            raise NotImplementedError("checkpoints are not ported yet (ROADMAP A10)")
         if cfg.loop_close_pairs > 0:
             raise NotImplementedError(
                 "loop closure (loop_close_pairs > 0) is not ported yet (ROADMAP A12)")
@@ -266,24 +281,42 @@ class IncrementalSfM:
         if cfg.ba.cadence > 1 and (frame % cfg.ba.cadence) != 0:
             return pstate
         if cfg.ba.local_window > 0:
-            mstate, _ = ba_mod.bundle_adjust_window(
+            mstate, ba_stats = ba_mod.bundle_adjust_window(
                 pstate.map, window_cams=cfg.ba.local_window,
                 window_points=cfg.ba.window_points,
                 max_iterations=cfg.ba.max_iterations, huber_delta=cfg.ba.huber_delta)
         else:
-            mstate, _ = ba_mod.bundle_adjust_map(
+            mstate, ba_stats = ba_mod.bundle_adjust_map(
                 pstate.map, max_iterations=cfg.ba.max_iterations,
                 huber_delta=cfg.ba.huber_delta)
+        if self.metrics is not None:
+            self.metrics.log(event="ba", frame=frame,
+                             initial_cost=float(ba_stats.initial_cost),
+                             final_cost=float(ba_stats.final_cost),
+                             accepted=int(ba_stats.accepted))
         return pstate._replace(map=mstate)
 
+    def _maybe_checkpoint(self, pstate: PipelineState, frame: int) -> None:
+        if not self.checkpoint_dir or not self.checkpoint_every:
+            return
+        if frame % self.checkpoint_every == 0:
+            from sfm_mvs_tpu_torch.utils import checkpoint as ckpt
+
+            ckpt.save_pipeline(f"{self.checkpoint_dir}/frame_{frame:05d}.npz", pstate, frame)
+
     def run(self, images_gray: Sequence[np.ndarray],
-            images_bgr: Optional[Sequence[np.ndarray]] = None,
-            seed: int = 0) -> MapState:
+            images_bgr: Optional[Sequence[np.ndarray]] = None, seed: int = 0,
+            resume_state: Optional[PipelineState] = None, resume_frame: int = 0,
+            batch_detect: int = 0) -> MapState:
         """Reconstruct from an ordered image sequence.
 
         images_gray: list of (H, W) float32 in [0, 1]. images_bgr: optional
         matching (H, W, 3) color images for point colors; grayscale is
-        replicated when absent. Per-frame stats go to ``self.stats``.
+        replicated when absent. resume_state/resume_frame: continue a
+        checkpointed run (``utils.checkpoint.load_pipeline``); frames up to
+        and including `resume_frame` are skipped. batch_detect > 0:
+        detect every frame before the registration loop, in chunks of this
+        size. Per-frame stats go to ``self.stats`` (and ``self.metrics``).
         """
         self._check_supported()
         cfg = self.config
@@ -292,32 +325,62 @@ class IncrementalSfM:
         if images_bgr is None:
             images_bgr = [np.repeat((g * 255.0)[..., None], 3, axis=-1) for g in images_gray]
 
-        def get_feats(i):
+        def detect(i):
             img = torch.as_tensor(np.asarray(images_gray[i], np.float32), device=dev)
-            return _undistort_features(sift.detect_and_compute(img, cfg.frontend), K, cfg)
+            return sift.detect_and_compute(img, cfg.frontend)
 
-        def bgr(i):
-            return torch.as_tensor(np.asarray(images_bgr[i], np.float32), device=dev)
+        pre_feats: Optional[list] = None
+        if batch_detect > 0:
+            # The JAX package vmaps each chunk; a batched SIFT is later work,
+            # so a chunk is detected frame by frame (the same features).
+            pre_feats = []
+            for s in range(0, len(images_gray), batch_detect):
+                pre_feats += [detect(i) for i in range(s, min(s + batch_detect, len(images_gray)))]
 
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        def get_feats(i):
+            f = pre_feats[i] if pre_feats is not None else detect(i)
+            # Undistort once at detection time so the stored per-camera
+            # features (the densify sweep) and the map agree.
+            return _undistort_features(f, K, cfg)
+
         # Per registered camera (rejected frames excluded): features and
         # images for finalize's densification sweep, and feature-slot ->
         # point-id track vectors, which finalize keeps remapped for loop
         # closure (not ported yet, ROADMAP A12).
-        t0 = time.perf_counter()
-        feats = [get_feats(0), get_feats(1)]
-        pstate, st, track0 = init_from_bootstrap(gen, feats[0], feats[1], bgr(1), K, cfg,
-                                                 return_track0=True)
-        self._record(1, st, self._wait(t0))
-        self._cam_feats = feats
-        self._cam_bgr = [images_bgr[0], images_bgr[1]]
-        self._cam_gray = [images_gray[0], images_gray[1]]
-        self._cam_tracks = [track0, pstate.prev_track]
-        for i in range(2, len(images_gray)):
+        self._cam_feats, self._cam_bgr, self._cam_gray, self._cam_tracks = [], [], [], []
+        if cfg.bootstrap == "auto" and resume_state is None:
+            if self.checkpoint_dir and self.checkpoint_every:
+                warnings.warn(
+                    "bootstrap=auto registers frames out of order; periodic "
+                    "checkpoints are not written (resume would fall back to "
+                    "the sequential driver). Run without --checkpoint-every "
+                    "or with --bootstrap seq.")
+            return self._run_auto(images_gray, images_bgr, seed, get_feats)
+        if resume_state is not None and cfg.bootstrap == "auto":
+            warnings.warn("resuming with bootstrap=auto: continuing with the "
+                          "SEQUENTIAL driver from the checkpointed state")
+        if resume_state is not None:
+            pstate = type(resume_state)(*[
+                type(v)(*[a.to(dev) for a in v]) if isinstance(v, tuple) else v.to(dev)
+                for v in resume_state])
+            start = resume_frame + 1
+        else:
+            t0 = time.perf_counter()
+            feats = [get_feats(0), get_feats(1)]
+            pstate, st, track0 = init_from_bootstrap(
+                frame_generator(dev, seed, 1), feats[0], feats[1], self._bgr(images_bgr[1]),
+                K, cfg, return_track0=True)
+            self._record(1, st, self._wait(t0))
+            self._cam_feats += feats
+            self._cam_bgr += [images_bgr[0], images_bgr[1]]
+            self._cam_gray += [images_gray[0], images_gray[1]]
+            self._cam_tracks += [track0, pstate.prev_track]
+            start = 2
+        for i in range(start, len(images_gray)):
             t0 = time.perf_counter()
             f = get_feats(i)
-            pstate, st = register_frame(gen, pstate, f, bgr(i), cfg)
+            pstate, st = register_frame(frame_generator(dev, seed, i), pstate, f,
+                                        self._bgr(images_bgr[i]), cfg)
             pstate = self._maybe_ba(pstate, i)
             self._record(i, st, self._wait(t0))
             if bool(st.accepted):
@@ -325,8 +388,70 @@ class IncrementalSfM:
                 self._cam_bgr.append(images_bgr[i])
                 self._cam_gray.append(images_gray[i])
                 self._cam_tracks.append(pstate.prev_track)
+            self._maybe_checkpoint(pstate, i)
         self.state = pstate
         return pstate.map
+
+    def _run_auto(self, images_gray, images_bgr, seed, get_feats) -> MapState:
+        """View-graph-driven registration: bootstrap on the strongest
+        sufficient-parallax pair, then register the remaining frames walking
+        outward from it. Cameras are re-permuted into frame order at the
+        end, so export, evaluation and the sweep see the usual layout."""
+        from sfm_mvs_tpu_torch.models import exhaustive
+
+        cfg = self.config
+        dev = self.device
+        K = torch.as_tensor(cfg.intrinsic_matrix(), device=dev)
+        N = len(images_gray)
+        feats = [get_feats(i) for i in range(N)]
+        graph = exhaustive.build_view_graph(images_gray, cfg, seed=seed, feats=feats,
+                                            window=cfg.view_graph_window)
+        a, b = exhaustive.best_bootstrap_pair(graph)
+        if a > b:
+            a, b = b, a
+        if self.metrics is not None:
+            self.metrics.log(event="bootstrap_auto", pair=[a, b])
+        pstate, st, track_a = init_from_bootstrap(
+            frame_generator(dev, seed, b), feats[a], feats[b], self._bgr(images_bgr[b]), K, cfg,
+            return_track0=True)
+        self._record(b, st, 0.0)
+        state = pstate.map
+        tracks = {a: track_a, b: pstate.prev_track}
+        cam_of_frame = {a: 0, b: 1}
+        frame_of_cam = [a, b]
+
+        # Walks: forward past b, backward before a, and the a..b interior.
+        walks = [(range(b + 1, N), b), (range(a - 1, -1, -1), a), (range(a + 1, b), a)]
+        step = 1
+        for frames, anchor in walks:
+            for f in frames:
+                t0 = time.perf_counter()
+                pstate_f = PipelineState(map=state, prev_feats=feats[anchor],
+                                         prev_track=tracks[anchor])
+                new_pstate, st = register_frame(
+                    frame_generator(dev, seed, f), pstate_f, feats[f],
+                    self._bgr(images_bgr[f]), cfg, anchor_cam=cam_of_frame[anchor])
+                new_pstate = self._maybe_ba(new_pstate, step)
+                self._record(f, st, self._wait(t0))
+                if bool(st.accepted):
+                    state = new_pstate.map
+                    tracks[f] = new_pstate.prev_track
+                    cam_of_frame[f] = len(frame_of_cam)
+                    frame_of_cam.append(f)
+                    anchor = f
+                step += 1
+
+        # Restore frame order for export, evaluation and the sweep.
+        state = map_store.reorder_cameras(state, np.argsort(frame_of_cam))
+        frames_sorted = sorted(frame_of_cam)
+        self._cam_feats = [feats[f] for f in frames_sorted]
+        self._cam_bgr = [images_bgr[f] for f in frames_sorted]
+        self._cam_gray = [images_gray[f] for f in frames_sorted]
+        self._cam_tracks = [tracks[f] for f in frames_sorted]
+        self.bootstrap_pair = (a, b)
+        last = frames_sorted[-1]
+        self.state = PipelineState(map=state, prev_feats=feats[last], prev_track=tracks[last])
+        return state
 
     def finalize(self, cull_px: float = 4.0, compact: bool = True,
                  ba_iterations: int = 0) -> MapState:
@@ -368,9 +493,14 @@ class IncrementalSfM:
                 state, self._cam_feats, self._cam_bgr, self.config,
                 cull_px=cull_px, images_gray=self._cam_gray)
             info.update(sweep_info)
+        if self.metrics is not None:
+            self.metrics.log(event="finalize", **info)
         self.finalize_info = info
         self.state = self.state._replace(map=state)
         return state
+
+    def _bgr(self, image) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(image, np.float32), device=self.device)
 
     def _wait(self, t0: float) -> float:
         if self.device.type == "cuda":
@@ -378,7 +508,7 @@ class IncrementalSfM:
         return time.perf_counter() - t0
 
     def _record(self, frame: int, st: FrameStats, wall_s: float) -> None:
-        self.stats.append({
+        d = {
             "frame": frame,
             "matches": int(st.num_matches),
             "tracked": int(st.num_tracked),
@@ -387,4 +517,7 @@ class IncrementalSfM:
             "reproj_error": float(st.reproj_error),
             "accepted": bool(st.accepted),
             "wall_s": wall_s,
-        })
+        }
+        self.stats.append(d)
+        if self.metrics is not None:
+            self.metrics.log(event="frame", **d)

@@ -180,6 +180,25 @@ def shrink_map(state: MapState, new_max_points: int) -> MapState:
     )
 
 
+def reorder_cameras(state: MapState, perm) -> MapState:
+    """Permute camera slots: new slot k holds old camera perm[k].
+
+    The auto-bootstrap driver registers frames in view-graph order and
+    then restores frame order. `perm` must be a permutation of
+    range(num_cams); padded slots stay in place.
+    """
+    C = state.poses.shape[0]
+    dev = state.poses.device
+    perm = torch.as_tensor(perm, dtype=torch.int64, device=dev)
+    full = torch.cat([perm, torch.arange(perm.shape[0], C, dtype=torch.int64, device=dev)])
+    return state._replace(
+        poses=state.poses[full],
+        cam_valid=state.cam_valid[full],
+        obs_uv=state.obs_uv[:, full],
+        obs_mask=state.obs_mask[:, full],
+    )
+
+
 def grow_map(state: MapState, new_max_points: int) -> MapState:
     """A copy with the point capacity enlarged to `new_max_points` by zero
     padding; point indices (and track ids held outside) stay valid."""

@@ -47,6 +47,15 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     return _conv1d(_conv1d(img, taps, 0), taps, 1)
 
 
+_PYR_TAPS = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """Gaussian-pyramid downscale (cv2.pyrDown): 5-tap binomial blur with
+    replicate padding, then 2x decimation. (H, W) -> ((H+1)//2, (W+1)//2)."""
+    return _conv1d(_conv1d(img, _PYR_TAPS, 0), _PYR_TAPS, 1)[::2, ::2]
+
+
 def upsample2(img: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample (OpenCV SIFT's initial image doubling):
     interleave (x[i], (x[i] + x[i+1]) / 2) per axis, last row replicated."""

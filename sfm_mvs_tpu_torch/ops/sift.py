@@ -286,7 +286,7 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
     if cfg.grad_sampling != "nearest_polar":
         raise NotImplementedError(
             f"grad_sampling={cfg.grad_sampling!r}: only 'nearest_polar' is "
-            "ported (ROADMAP A3); 'bilinear' waits")
+            "ported; 'bilinear' waits (ROADMAP A12)")
     dev = image.device
     S = cfg.scales_per_octave
     base = pyramid.upsample2(image) if cfg.upsample_input else image

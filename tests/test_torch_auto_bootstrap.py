@@ -1,0 +1,128 @@
+"""The view-graph bootstrap against the JAX package: map_store.reorder_cameras,
+models/exhaustive.py (build_view_graph, best_bootstrap_pair) and
+IncrementalSfM's bootstrap="auto" driver.
+
+Both view graphs are built from the same features (the port's, carried
+across), so the ratio-test match counts must be identical. The port's
+E-RANSAC scores the JAX package's own minimal samples (its key splits
+repeated, as in tests/test_torch_ransac.py), so the E-inlier counts must
+be identical too, and the mean parallax over the inliers agrees within
+0.05 deg on 10 of the 12 pairs. The other two, (0, 3) and (1, 4), are the
+same two images 12 deg apart: at identical inlier sets the 8-point refit
+lands 0.5-0.7 deg apart in R there (an ill-conditioned refit, measured),
+so they are held within 0.5 deg. With the port's own torch stream the
+parallax moves by degrees, so the driver's run is compared by outcome:
+the chosen pair and the reconstruction.
+The scene is tests/test_auto_bootstrap.py's degenerate start: frames 0 and
+1 identical, so the sequential bootstrap has no baseline.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+
+from _torch_parity import J, N, T, ba_map, jax_and_port
+
+from sfm_mvs_tpu.models import exhaustive as jexhaustive
+from sfm_mvs_tpu.models import map_store as jms
+from sfm_mvs_tpu.ops import ransac as jransac
+from sfm_mvs_tpu.ops.sift import Features as JFeatures
+from sfm_mvs_tpu.utils import config as jconfig
+from sfm_mvs_tpu_torch.models import exhaustive, map_store
+from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
+from sfm_mvs_tpu_torch.ops import ransac, sift
+from sfm_mvs_tpu_torch.utils import config, evaluate
+from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
+
+
+def _cfg(mod, K, **kw):
+    return mod.SfmConfig(
+        fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]), cy=float(K[1, 2]),
+        downscale=1,
+        frontend=mod.FrontendConfig(max_features=1024, num_octaves=3, upsample_input=True,
+                                    contrast_threshold=0.015, lowe_ratio=0.75),
+        map=mod.MapConfig(max_cameras=8, max_points=16384), **kw)
+
+
+@pytest.fixture(scope="module")
+def degenerate_start_scene():
+    imgs, Rt_gt, K = render_staircase_sequence(num_cameras=5, arc_degrees=24,
+                                               image_size=(320, 240))
+    imgs = [imgs[0], imgs[0]] + list(imgs[1:])
+    Rt_gt = np.concatenate([Rt_gt[:1], Rt_gt], axis=0)
+    return imgs, Rt_gt, K
+
+
+def _jax_pair_keys(n_pairs, seed=0, batch_size=8):
+    """The key of each pair in the JAX package's build_view_graph."""
+    key, keys = jax.random.PRNGKey(seed), []
+    for _ in range(0, n_pairs, batch_size):
+        key, kb = jax.random.split(key)
+        keys += list(jax.random.split(kb, batch_size))
+    return keys[:n_pairs]
+
+
+@pytest.fixture(scope="module")
+def graphs(degenerate_start_scene):
+    """(JAX, port) view graphs over the same features, window 3; the port's
+    E-RANSAC draws the JAX package's samples."""
+    imgs, _, K = degenerate_start_scene
+    cfg = _cfg(config, K)
+    feats = [sift.detect_and_compute(T(g), cfg.frontend) for g in imgs]
+    jfeats = [JFeatures(*[J(a) for a in f]) for f in feats]
+    jg = jexhaustive.build_view_graph(imgs, _cfg(jconfig, K), feats=jfeats, window=3)
+    keys = iter(_jax_pair_keys(len(jg.pair_i)))
+    iters = cfg.ransac.essential_iters
+    own = ransac.ransac_essential
+
+    def jax_samples(gen, n0, n1, mask, focal, **kw):
+        k1, _ = jax.random.split(next(keys))
+        idx = jransac._sample_indices(k1, iters, 8, jnp.sum(J(mask)), n0.shape[0])
+        return own(gen, n0, n1, mask, focal, sample_idx=T(idx), **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ransac, "ransac_essential", jax_samples)
+        tg = exhaustive.build_view_graph(imgs, cfg, feats=feats, window=3)
+    return jg, tg
+
+
+def test_reorder_cameras_bitwise():
+    js, ts = jax_and_port(ba_map(C=5))
+    perm = [3, 0, 4, 1, 2]
+    ref = jms.reorder_cameras(js, jnp.asarray(perm))
+    out = map_store.reorder_cameras(ts, perm)
+    for name, a, b in zip(ref._fields, out, ref):
+        np.testing.assert_array_equal(N(a), N(b), err_msg=name)
+    # padded slots 5..7 stay in place
+    np.testing.assert_array_equal(N(out.poses)[5:], N(ts.poses)[5:])
+
+
+def test_view_graph_matches_jax(graphs):
+    jg, tg = graphs
+    np.testing.assert_array_equal(tg.pair_i, jg.pair_i)
+    np.testing.assert_array_equal(tg.pair_j, jg.pair_j)
+    assert len(tg.pair_i) == 3 + 3 + 3 + 2 + 1  # |i - j| <= 3 over 6 frames
+    np.testing.assert_array_equal(tg.num_matches, np.asarray(jg.num_matches))
+    np.testing.assert_array_equal(tg.num_inliers, np.asarray(jg.num_inliers))
+    d_par = np.abs(tg.parallax_deg - np.asarray(jg.parallax_deg))
+    assert (d_par <= 0.05).sum() >= 10 and d_par.max() < 0.5, d_par
+    np.testing.assert_array_equal(tg.adjacency[tg.pair_i, tg.pair_j], tg.num_inliers)
+    # the duplicated pair: many inliers, no parallax
+    assert tg.num_inliers[0] > 50 and tg.parallax_deg[0] < 0.2
+    assert exhaustive.best_bootstrap_pair(tg) == jexhaustive.best_bootstrap_pair(jg) != (0, 1)
+
+
+def test_auto_bootstrap_reconstructs_degenerate_start(degenerate_start_scene, graphs):
+    imgs, Rt_gt, K = degenerate_start_scene
+    sfm = IncrementalSfM(_cfg(config, K, bootstrap="auto", view_graph_window=3))
+    state = sfm.run(imgs)
+    assert sfm.bootstrap_pair == jexhaustive.best_bootstrap_pair(graphs[0])
+    cv = N(state.cam_valid)
+    assert cv.sum() == 6
+    poses = N(state.poses)[cv]
+    assert evaluate.ate_rmse(poses, Rt_gt) < 0.05
+    c = evaluate.camera_centers(poses)
+    assert np.linalg.norm(c[0] - c[1]) < 0.1  # the duplicated frames coincide
+    assert [s["frame"] for s in sfm.stats][0] == sfm.bootstrap_pair[1]
+    assert len(sfm._cam_feats) == 6 and sfm.state.map is state

@@ -1,8 +1,9 @@
 """The port runs where JAX is absent (the GPU machine has no jax).
 
 In a fresh interpreter with ``jax`` and ``sfm_mvs_tpu`` blocked from import,
-every module of ``sfm_mvs_tpu_torch`` imports, and a small detect + match
-runs on the CPU.
+every module of ``sfm_mvs_tpu_torch`` imports (the CLI, the native loader,
+MVS and the view graph among them), the CLI's parser takes the flags the
+GPU smoke run gives it, and a small detect + match runs on the CPU.
 """
 
 import os
@@ -23,6 +24,19 @@ SCRIPT = textwrap.dedent("""
                                                    "sfm_mvs_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    for name in ("cli", "native", "models.mvs", "models.exhaustive"):
+        assert "sfm_mvs_tpu_torch." + name in names
+    from sfm_mvs_tpu_torch import cli
+    args = cli.build_parser().parse_args([
+        "--image-dir", "frames", "--out", "out", "--fx", "1200", "--fy", "1200",
+        "--cx", "484", "--cy", "324", "--downscale", "1", "--max-features", "4096",
+        "--lowe-ratio", "0.75", "--contrast-threshold", "0.012", "--max-cameras", "64",
+        "--max-points", "16384", "--bootstrap", "auto", "--ba", "--ba-iterations", "8",
+        "--finalize", "--sweep", "--sweep-contrast", "0.0025", "--densify", "--no-gif",
+        "--device", "cuda"])
+    cfg = cli.config_from_args(args)
+    assert (cfg.bootstrap, cfg.ba.enabled, cfg.sweep.enabled, args.densify, args.device) == (
+        "auto", True, True, True, "cuda")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     from sfm_mvs_tpu_torch.ops import matching, sift
@@ -44,5 +58,5 @@ def test_port_imports_and_runs_without_jax():
                          env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, n_kp, n_matches = map(int, out.stdout.split())
-    assert n_modules >= 23
+    assert n_modules >= 36
     assert n_kp > 20 and n_matches > 10

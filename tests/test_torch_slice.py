@@ -146,10 +146,11 @@ def test_ba_and_finalize_both_packages(scene):
 def test_unported_options_raise(scene):
     imgs, _, _, cfg, _ = scene
 
-    for bad in (dataclasses.replace(cfg, bootstrap="auto"),
-                dataclasses.replace(cfg, loop_close_pairs=2),
-                dataclasses.replace(cfg, ba=config.BaConfig(enabled=True, refine_intrinsics=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # bootstrap="auto" and checkpoints are ported (test_torch_auto_bootstrap.py,
+    # test_torch_checkpoint.py); loop closure and BA of the intrinsics wait.
+    for bad in (dataclasses.replace(cfg, loop_close_pairs=2),
+                dataclasses.replace(cfg, ba=config.BaConfig(enabled=True, refine_intrinsics=True)),
+                dataclasses.replace(cfg, ba=config.BaConfig(
+                    enabled=True, refine_intrinsics_per_camera=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             incremental.IncrementalSfM(bad).run(imgs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        incremental.IncrementalSfM(cfg, checkpoint_dir="x", checkpoint_every=1).run(imgs)
