@@ -6,9 +6,16 @@
 Phases, each printing one line (any failure exits non-zero):
 
 1. device: requires CUDA; prints the card's name and power limit.
-2. build: compiles the port's CUDA sources (csrc/*.cu) with nvcc.
+2. build: compiles the port's CUDA sources (csrc/*.cu) with nvcc; the tile
+   kernel's registers and spill bytes from the ptxas report (spills fail).
 3. K1: the 2-NN matcher kernel against its plain PyTorch version on the
-   card, on five cases, then both timed at 4096 x 4096 x 128.
+   card, on nine cases (five of PR 1; exact ties across tiles and across
+   splits, where d1 == d2 bitwise at the lower column; train sets of 1 and
+   100 columns), then the kernel, the plain version and ``torch.mm`` of the
+   cross term (the library yardstick) timed at 4096 x 4096 x 128 in turns,
+   launch-amortized (50 back-to-back calls between CUDA events, median of 5
+   windows), beside the FP32-FMA bound; the device ops of one call counted
+   under torch.profiler (at most 6).
 4. main path: ``IncrementalSfM(cfg, device="cuda").run(images)`` on the
    57-frame 968x648 staircase scene at bench.py's frontend settings, BA off;
    checks registration, ATE and reprojection error against ground truth,
@@ -47,12 +54,20 @@ Phases, each printing one line (any failure exits non-zero):
 
 ``--profile`` adds, after phase 9, torch.profiler over one
 ``mvs._plane_sweep_batch`` call of 4 reference frames.
+
+    python3 chip_smoke.py --microbench  # only the card's limits behind K1
+
+builds ``csrc/microbench.cu`` and prints the FFMA rate (independent
+chains; an 8x8 outer product from registers), the SM cycles of a warp's
+float4 shared load by address pattern, and the SM cycles to copy a
+2048-float chunk with 4-byte (transposing) or 16-byte ``cp.async``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -91,16 +106,31 @@ def phase_device() -> str:
 
 
 def phase_build():
+    """Compile csrc/knn2.cu; returns (seconds, registers, spill bytes) of
+    the tile kernel from the ptxas report."""
     from sfm_mvs_tpu_torch.ops import matching_cuda
 
     t0 = time.time()
     path = matching_cuda.build()
     secs = time.time() - t0
-    ptxas = [ln.strip() for ln in matching_cuda.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"[build] csrc/knn2.cu -> {path.name} in {secs:.1f}s; "
-        + " | ".join(ptxas))
-    return secs
+    report = [ln.strip() for ln in matching_cuda.build_log.splitlines()
+              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    log(f"[build] csrc/knn2.cu -> {path.name} in {secs:.1f}s; " + " | ".join(report))
+    registers = spills = None
+    in_tile = False
+    for ln in report:
+        if "Compiling entry" in ln:
+            in_tile = "knn2_tile_kernel" in ln
+        elif in_tile and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            spills = int(m.group(1)) + int(m.group(2))
+        elif in_tile and "Used" in ln:
+            registers = int(re.search(r"Used (\d+) registers", ln).group(1))
+    if registers is None or spills is None:
+        raise AssertionError("no ptxas report for knn2_tile_kernel")
+    if spills:
+        raise AssertionError(f"knn2_tile_kernel spills {spills} bytes")
+    return secs, registers, spills
 
 
 def _descs(rng, n, d=128):
@@ -109,81 +139,166 @@ def _descs(rng, n, d=128):
 
 
 def _k1_cases(real_pair):
-    """(name, desc0, desc1, valid0, valid1, ratio) as numpy arrays."""
+    """(name, desc0, desc1, valid0, valid1, ratio, tie) as numpy arrays; `tie`
+    is None or (column offset of the duplicates, each query's source column)."""
     rng = np.random.default_rng(0)
     cases = []
     d0 = _descs(rng, 300)
     d1 = d0[rng.permutation(300)] + 0.01 * rng.standard_normal((300, 128)).astype(np.float32)
     d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
-    cases.append(("300x300", d0, d1, np.ones(300, bool), np.ones(300, bool), 0.7))
+    cases.append(("300x300", d0, d1, np.ones(300, bool), np.ones(300, bool), 0.7, None))
     d0 = _descs(rng, 100)
     d1 = np.vstack([_descs(rng, 500), d0[:100]]).astype(np.float32)
-    cases.append(("100x600", d0, d1, np.ones(100, bool), np.ones(600, bool), 0.8))
+    cases.append(("100x600", d0, d1, np.ones(100, bool), np.ones(600, bool), 0.8, None))
     d0 = _descs(rng, 64)
     d1 = np.vstack([d0[:32], d0[:32]]).astype(np.float32)
-    cases.append(("invalid-masks", d0, d1, np.arange(64) < 40, np.arange(64) < 32, 0.7))
+    cases.append(("invalid-masks", d0, d1, np.arange(64) < 40, np.arange(64) < 32, 0.7, None))
     d0 = _descs(rng, 4095)
     d1 = np.vstack([d0[rng.permutation(4095)][:2048]
                     + 0.02 * rng.standard_normal((2048, 128)).astype(np.float32),
                     _descs(rng, 2049)]).astype(np.float32)
     v1 = rng.random(4097) > 0.05
-    cases.append(("4095x4097", d0, d1, rng.random(4095) > 0.05, v1, 0.75))
-    cases.append(real_pair)
+    cases.append(("4095x4097", d0, d1, rng.random(4095) > 0.05, v1, 0.75, None))
+    cases.append(real_pair + (None,))
+    # Exact ties: train rows duplicated bit for bit `off` columns apart, in
+    # another 128-column tile (off 128) or another split (off 2048); each
+    # query is a noisy copy of a duplicated row, whose lower column must win.
+    for name, off in (("ties-across-tiles", 128), ("ties-across-splits", 2048)):
+        d1 = _descs(rng, 4096)
+        lower = np.arange(4096)[(np.arange(4096) // off) % 2 == 0]
+        d1[lower + off] = d1[lower]
+        src = rng.choice(lower, 4096)
+        d0 = d1[src] + 0.01 * rng.standard_normal((4096, 128)).astype(np.float32)
+        d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+        cases.append((name, d0, d1, np.ones(4096, bool), np.ones(4096, bool), 0.75,
+                      (off, src)))
+    # Small train sets: one column (no second candidate: d2 = 3e38) and 100
+    # (one ragged tile).
+    for n1 in (1, 100):
+        d1 = _descs(rng, n1)
+        d0 = d1[rng.integers(0, n1, 4096)] + 0.05 * rng.standard_normal((4096, 128)).astype(
+            np.float32)
+        d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+        cases.append((f"small-train-4096x{n1}", d0, d1, rng.random(4096) > 0.05,
+                      np.ones(n1, bool), 0.75, None))
     return cases
 
 
-def _time_ms(fn, reps=25):
+def _window_ms(fn, calls=50, windows=5):
+    """Launch-amortized time: `calls` back-to-back calls between two CUDA
+    events, elapsed / calls; one value per window."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    out = []
+    for _ in range(windows):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        out.append(a.elapsed_time(b) / calls)
+    return out
+
+
+def _check_k1_case(case, matching, matching_cuda):
+    """One case: kernel against the plain version; returns max |dd|."""
+    name, d0, d1, v0, v1, ratio, tie = case
+    t = [torch.as_tensor(a, device=DEVICE) for a in (d0, d1, v0, v1)]
+    kd1, kj1, kd2 = matching_cuda.knn2_raw(t[0], t[1], t[3])
+    pd1, pj1, pd2 = matching.top2(matching.distance_matrix(t[0], t[1], t[3]))
+    km = matching_cuda.knn_match_cuda(*t, ratio=ratio)
+    pm = matching.knn_match(*t, ratio=ratio)
+    torch.cuda.synchronize()
+    # Compared on valid query rows: an invalid SIFT slot may carry a NaN
+    # descriptor, whose row neither version ever reports as a match.
+    q = t[2]
+    err = max(float((kd1 - pd1)[q].abs().max()), float((kd2 - pd2)[q].abs().max()))
+    decided = (pd2 - pd1) > MARGIN
+    r2d2 = (ratio * ratio) * pd2
+    clear = (pd1 - r2d2).abs() > MARGIN
+    n_idx = int((q & decided & (kj1 != pj1.to(torch.int32))).sum())
+    n_val = int((clear & (km.valid != pm.valid)).sum())
+    n_inside = int((q & (~decided | ~clear)).sum())
+    same = torch.equal(km.idx1, kj1) and torch.equal(
+        km.idx0, torch.arange(len(v0), dtype=torch.int32, device=DEVICE))
+    extra = ""
+    bad = not same
+    if tie is not None:
+        # Bitwise: both duplicates give the same distance, the lower column wins.
+        src = torch.as_tensor(tie[1], device=DEVICE)
+        n_tie = int(((kd1 == kd2) & (kj1 == src)).sum())
+        extra = f" exact_ties={n_tie}/{len(v0)} (d1 == d2 bitwise at the lower column)"
+        bad |= n_tie != len(v0)
+    if d1.shape[0] == 1:
+        n_big = int((kd2 == matching.BIG).sum())
+        extra = f" d2_is_3e38={n_big}/{len(v0)}"
+        bad |= n_big != len(v0) or not bool((pd2 == matching.BIG).all())
+    log(f"[k1] {name}: max|dd|={err:.3g} over {int(q.sum())} valid queries, "
+        f"idx_mismatch={n_idx} valid_mismatch={n_val} inside_margin={n_inside} "
+        f"matches={int(pm.valid.sum())}/{len(v0)}{extra}")
+    if bad or not err <= DIST_ATOL or n_idx or n_val or bool((km.valid & ~q).any()):
+        raise AssertionError(f"K1 disagrees with its plain version on {name}")
+    return err
+
+
+def k1_bound_ms(n0, n1, d):
+    """(ms, bound_by): the least time of one call on an H100 SXM: the cross
+    term's 2 n0 n1 d FP32 operations at 67 TFLOP/s (CUDA cores; the tensor
+    cores have no FP32 mode), or its bytes (descriptors and masks read
+    once; idx0, idx1 and valid written once) at 3.35 TB/s."""
+    ops_ms = 2.0 * n0 * n1 * d / 67e12 * 1e3
+    bytes_ms = ((n0 + n1) * (4 * d + 1) + n0 * 9) / 3.35e12 * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def phase_k1(real_pair):
+    """K1 against its plain version on every case, then the real pair timed
+    launch-amortized in turns (plain, kernel, library, kernel, plain), the
+    device ops of one call counted under torch.profiler."""
     from sfm_mvs_tpu_torch.ops import matching, matching_cuda
 
-    dev = DEVICE
-    worst = 0.0
-    for name, d0, d1, v0, v1, ratio in _k1_cases(real_pair):
-        t = [torch.as_tensor(a, device=dev) for a in (d0, d1, v0, v1)]
-        kd1, kj1, kd2 = matching_cuda.knn2_raw(t[0], t[1], t[3])
-        pd1, pj1, pd2 = matching.top2(matching.distance_matrix(t[0], t[1], t[3]))
-        km = matching_cuda.knn_match_cuda(*t, ratio=ratio)
-        pm = matching.knn_match(*t, ratio=ratio)
-        torch.cuda.synchronize()
-        # Compared on valid query rows: an invalid SIFT slot may carry a
-        # NaN descriptor, whose row neither version ever reports as a match.
-        q = t[2]
-        err = max(float((kd1 - pd1)[q].abs().max()), float((kd2 - pd2)[q].abs().max()))
-        worst = max(worst, err)
-        decided = (pd2 - pd1) > MARGIN
-        r2d2 = (ratio * ratio) * pd2
-        clear = (pd1 - r2d2).abs() > MARGIN
-        n_idx = int((q & decided & (kj1 != pj1.to(torch.int32))).sum())
-        n_val = int((clear & (km.valid != pm.valid)).sum())
-        n_inside = int((q & (~decided | ~clear)).sum())
-        log(f"[k1] {name}: max|dd|={err:.3g} over {int(q.sum())} valid queries, "
-            f"idx_mismatch={n_idx} valid_mismatch={n_val} inside_margin={n_inside} "
-            f"matches={int(pm.valid.sum())}/{len(v0)}")
-        if not err <= DIST_ATOL or n_idx or n_val or bool((km.valid & ~q).any()):
-            raise AssertionError(f"K1 disagrees with its plain version on {name}")
+    worst = max(_check_k1_case(c, matching, matching_cuda) for c in _k1_cases(real_pair))
 
     name, d0, d1, v0, v1, ratio = real_pair
-    t = [torch.as_tensor(a, device=dev) for a in (d0, d1, v0, v1)]
-    ms_kernel = _time_ms(lambda: matching_cuda.knn_match_cuda(*t, ratio=ratio))
-    ms_plain = _time_ms(lambda: matching.knn_match(*t, ratio=ratio))
-    log(f"[k1] time at {d0.shape[0]}x{d1.shape[0]}x{d0.shape[1]}: kernel "
-        f"{ms_kernel:.4f} ms, plain {ms_plain:.4f} ms (CUDA events, median of 25)")
-    return worst, ms_kernel, ms_plain
+    t = [torch.as_tensor(a, device=DEVICE) for a in (d0, d1, v0, v1)]
+    fns = {"plain": lambda: matching.knn_match(*t, ratio=ratio),
+           "kernel": lambda: matching_cuda.knn_match_cuda(*t, ratio=ratio),
+           "library": lambda: torch.mm(t[0], t[1].T)}
+    windows = {k: [] for k in fns}
+    turns = []
+    for key in ("plain", "kernel", "library", "kernel", "plain"):
+        w = _window_ms(fns[key])
+        windows[key] += w
+        turns.append(f"{key} {statistics.median(w):.4f}")
+    ms = {k: statistics.median(v) for k, v in windows.items()}
+    # Host enqueue rate of the wrapper (no synchronize inside the loop).
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    for _ in range(50):
+        fns["kernel"]()
+    host_ms = (time.perf_counter() - h0) / 50 * 1e3
+    torch.cuda.synchronize()
+    _, busy, n_ops, prof = _profile_window(fns["kernel"])
+    kernel_us = {e.key: e.device_time_total for e in prof.key_averages() if "knn2" in e.key}
+    n0, dd = d0.shape
+    bound, bound_by = k1_bound_ms(n0, d1.shape[0], dd)
+    log(f"[k1] time at {n0}x{d1.shape[0]}x{dd} (ms per call, CUDA events around 50 "
+        f"back-to-back calls, median of 5 windows per turn): " + ", ".join(turns))
+    log(f"[k1] kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, torch.mm cross term "
+        f"{ms['library']:.4f} ms (TF32 off: {not torch.backends.cuda.matmul.allow_tf32}); "
+        f"bound {bound:.4f} ms ({bound_by}), share {bound / ms['kernel']:.3f}; host enqueue "
+        f"{host_ms:.4f} ms per call")
+    log(f"[k1] one knn_match_cuda call under torch.profiler: {n_ops} device ops, device busy "
+        f"{busy:.4f} ms; " + ", ".join(f"{k.split('(')[0]} {v / 1e3:.4f} ms"
+                                         for k, v in kernel_us.items()))
+    if n_ops > 6:
+        raise AssertionError(f"one knn_match_cuda call launched {n_ops} device ops, expected <= 6")
+    return dict(max_abs_err=worst, ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound, bound_by=bound_by,
+                bound_share=bound / ms["kernel"], device_ops_per_call=n_ops)
 
 
 SCENE = dict(num_cameras=57, image_size=(968, 648), focal=1200.0, radius=9.0,
@@ -881,21 +996,78 @@ def phase_profile(imgs, cfg, n_frames=10):
     log(summary_i)
 
 
+def microbench() -> None:
+    """The card's limits behind K1's design (csrc/microbench.cu), each a
+    kernel timed with CUDA events after a warm-up launch."""
+    import ctypes
+
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+
+    src = matching_cuda._SRC.with_name("microbench.cu")
+    out = matching_cuda._BUILD_DIR / "libmicrobench.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in matching_cuda._NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([matching_cuda._nvcc(), *flags, "-o", str(out), str(src)], check=True)
+    lib = ctypes.CDLL(str(out))
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.mb_ffma.argtypes = [i, i, i, p, p]
+    lib.mb_lds128.argtypes = [i, i, i, p]
+    lib.mb_copy.argtypes = [i, i, i, p, p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]) * 1e6
+
+    def timed(fn, *args):
+        for _ in range(2):
+            if fn(*args):
+                raise RuntimeError(f"{fn.__name__} failed to launch")
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) * 1e-3
+
+    fout = torch.zeros(1, device=DEVICE)
+    iout = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    vals = torch.rand(256, device=DEVICE)
+    for outer, name, fmas in ((0, "independent chains", 128), (1, "8x8 outer product", 256)):
+        blocks, iters = 2 * sms, 20000
+        secs = timed(lib.mb_ffma, outer, blocks, iters, fout.data_ptr(), vals.data_ptr())
+        log(f"[micro] FFMA {name}: {2 * blocks * 256 * iters * fmas / secs / 1e12:.1f} TFLOP/s")
+    for mode, name in enumerate(("32 distinct", "8 distinct per quarter-warp (knn2 train)",
+                                 "1 per quarter-warp", "1 per half-warp (knn2 query)", "1 per warp")):
+        blocks, iters = 4 * sms, 4096
+        secs = timed(lib.mb_lds128, mode, blocks, iters, iout.data_ptr())
+        per_sm = blocks * 16 * iters * 8 / sms
+        log(f"[micro] LDS.128, {name}: {secs * clock_hz / per_sm:.2f} SM cycles per warp load")
+    g = torch.rand(64 * 128 * 128, device=DEVICE)
+    for wide, name in ((0, "4-byte cp.async, transposed"), (1, "16-byte cp.async")):
+        blocks, iters = 2 * sms, 4000
+        secs = timed(lib.mb_copy, wide, blocks, iters, g.data_ptr(), fout.data_ptr())
+        log(f"[micro] {name}: {secs * clock_hz / (blocks * iters / sms):.1f} SM cycles per "
+            f"2048-float chunk")
+    log(f"[micro] at {clock_hz / 1e6:.0f} MHz (clocks.max.sm), {sms} SMs")
+
+
 def main(argv) -> int:
     t_start = time.time()
     smi = phase_device()
-    import os
-
     import sfm_mvs_tpu_torch  # noqa: F401  (sets full-fp32 matmul flags)
     from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
 
     os.makedirs("chiprun_out", exist_ok=True)
-    build_s = phase_build()
+    if "--microbench" in argv:
+        microbench()
+        return 0
+    build_s, registers, spills = phase_build()
     t0 = time.time()
     imgs, Rt_gt, _, gt_depths = render_staircase_sequence(**SCENE, return_depth=True)
     log(f"[scene] rendered {len(imgs)} frames {SCENE['image_size']} in {time.time() - t0:.1f}s")
     cfg = main_config()
-    worst, ms_k, ms_p = phase_k1(sift_pair(imgs, cfg))
+    k1 = phase_k1(sift_pair(imgs, cfg))
     launches, ate_ba_off = phase_main(imgs, Rt_gt, cfg)
     n, bench_map = phase_bench(imgs, Rt_gt, cfg, ate_ba_off)
     launches += n
@@ -913,7 +1085,7 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [{
         "name": "knn2", "route": "cuda", "source": "sfm_mvs_tpu_torch/csrc/knn2.cu",
         "replaces": "sfm_mvs_tpu/ops/matching_pallas.py:55", "launches": launches,
-        "max_abs_err": worst, "ms": ms_k, "plain_ms": ms_p,
+        **k1, "registers": registers, "spills": spills,
     }], "build_s": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from sfm_mvs_tpu_torch.models.incremental import resolve_device
 from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift
 from sfm_mvs_tpu_torch.ops.epipolar import recover_pose
 from sfm_mvs_tpu_torch.ops.matching_cuda import knn_match_cuda
@@ -69,17 +70,17 @@ def _pair_geometry(gen, f0: Features, f1: Features, K, cfg: SfmConfig):
 def build_view_graph(images_gray: Sequence[np.ndarray], cfg: Optional[SfmConfig] = None,
                      seed: int = 0, batch_size: int = 8,
                      feats: Optional[list[Features]] = None, window: int = 0,
-                     device=None) -> ViewGraph:
+                     device="cuda") -> ViewGraph:
     """Match frame pairs: all of them, or those with |i - j| <= window.
 
-    Features are detected on `device` unless given (then their device is
-    used). Pairs run in batches of `batch_size` whose results reach the
-    host in one transfer; the RANSAC draws come from one generator seeded
-    with `seed`.
+    Features are detected on `device` (default ``cuda``; without a GPU pass
+    ``device="cpu"``) unless given (then their device is used). Pairs run
+    in batches of `batch_size` whose results reach the host in one
+    transfer; the RANSAC draws come from one generator seeded with `seed`.
     """
     cfg = cfg or SfmConfig()
     if feats is None:
-        dev = torch.device(device or "cpu")
+        dev = resolve_device(device)
         feats = [sift.detect_and_compute(torch.as_tensor(np.asarray(g, np.float32), device=dev),
                                          cfg.frontend) for g in images_gray]
     dev = feats[0].xy.device

@@ -229,6 +229,16 @@ def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
     return _select(accepted, new_pstate, pstate), stats
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a usable GPU raises
+    (the Python API runs on the card unless the caller asks for the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r}: CUDA is not available on this machine "
+                           "(pass device=\"cpu\" to run on the CPU)")
+    return dev
+
+
 def frame_generator(device, seed: int, frame: int) -> torch.Generator:
     """The random stream of one frame: a generator seeded from (seed, frame).
 
@@ -245,7 +255,8 @@ class IncrementalSfM:
     """Host-side driver: detect -> bootstrap/register -> optional BA, frame
     by frame, then ``finalize``.
 
-    Every tensor lives on `device`. The JAX package's ``IncrementalSfM``:
+    Every tensor lives on `device` (default ``cuda``; without a GPU pass
+    ``device="cpu"``). The JAX package's ``IncrementalSfM``:
     the sequential bootstrap on frames (0, 1) or the view-graph bootstrap
     (``bootstrap="auto"``), bundle adjustment every ``cfg.ba.cadence``
     frames (global or windowed), a checkpoint every ``checkpoint_every``
@@ -254,10 +265,10 @@ class IncrementalSfM:
     global BA, the densification sweep).
     """
 
-    def __init__(self, config: Optional[SfmConfig] = None, device="cpu", metrics=None,
+    def __init__(self, config: Optional[SfmConfig] = None, device="cuda", metrics=None,
                  checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0):
         self.config = config or SfmConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.metrics = metrics
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every

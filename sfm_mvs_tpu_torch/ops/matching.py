@@ -56,6 +56,16 @@ def top2(d2: torch.Tensor):
     return d1, j1, d2nd
 
 
+def ratio_test(valid0: torch.Tensor, d1: torch.Tensor, d2nd: torch.Tensor,
+               ratio: float) -> torch.Tensor:
+    """Lowe's test on squared distances: valid0 & d1 < ratio^2 * d2nd & d1 < 3e38.
+
+    ``ratio * ratio`` is a Python float that torch rounds to float32 before
+    the one float32 product; the CUDA merge kernel rounds the same way.
+    """
+    return valid0 & (d1 < (ratio * ratio) * d2nd) & (d1 < BIG)
+
+
 def knn_match(
     desc0: torch.Tensor,
     desc1: torch.Tensor,
@@ -73,7 +83,7 @@ def knn_match(
     """
     d2 = distance_matrix(desc0, desc1, valid1)
     d1, j1, d2nd = top2(d2)
-    ok = valid0 & (d1 < (ratio * ratio) * d2nd) & (d1 < BIG)
+    ok = ratio_test(valid0, d1, d2nd, ratio)
     if mutual:
         d2_t = torch.where(valid0[None, :], d2.T, torch.full_like(d2.T, BIG))
         back = torch.argmin(d2_t, dim=1)  # (N1,) best query for each train

@@ -4,12 +4,19 @@ Replaces ``sfm_mvs_tpu/ops/matching_pallas.py:_knn2_kernel`` (wrapper
 ``knn_match_pallas``). The kernel source is ``csrc/knn2.cu``; see its
 header for the design. In short: what bounds it on the H100 is FP32 FMA
 throughput — about 4.3 GFLOP per call at the main-path shape 4096 x 4096 x
-128 — while the plain version (``ops/matching.py``) writes and re-reads a
-64 MiB distance matrix; the kernel keeps each distance in registers,
-folds it into a per-thread running top-2, and never writes the matrix. It
-sums the cross term with FP32 FMA on the CUDA cores (no TF32), and rounds
-the distance epilogue with explicit ``__fadd_rn``/``__fmul_rn``/``__fsub_rn``
-so it matches the plain expression ``max((|q|^2+|t|^2) - 2 q.t, 0)``.
+128, 64.1 us at the card's 67 TFLOP/s — while the plain version
+(``ops/matching.py``) writes and re-reads a 64 MiB distance matrix. A
+tile kernel (128 x 128 block tiles, 8 x 8 per thread, train chunks
+streamed through a cp.async ring) keeps each distance in registers and
+folds it into a running top-2 per split of the train axis
+(:func:`plan_splits`); a merge kernel folds the splits and applies the
+ratio test. It sums the cross term with FP32 FMA on the CUDA cores (no
+TF32), and rounds the distance epilogue with explicit
+``__fadd_rn``/``__fmul_rn``/``__fsub_rn`` so it matches the plain
+expression ``max((|q|^2+|t|^2) - 2 q.t, 0)``. A call launches six device
+ops: the two norm reductions (``matching.squared_norms``, a product and a
+sum each, shared with the plain version so both see the same norms) and
+the two kernels.
 
 The library is compiled from the checkout's source with ``nvcc`` for
 ``sm_90a`` on first use, into ``sfm_mvs_tpu_torch/_build/`` (listed in
@@ -20,6 +27,7 @@ import time, so this module imports on a machine without nvcc or a GPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,9 +37,7 @@ from pathlib import Path
 
 import torch
 
-from sfm_mvs_tpu_torch.ops.matching import (
-    BIG, Matches, knn_match, squared_norms,
-)
+from sfm_mvs_tpu_torch.ops.matching import Matches, knn_match, squared_norms
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "knn2.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -43,6 +49,13 @@ _NVCC_FLAGS = [
 # Launches of the CUDA kernel since the last reset (one per wrapper call
 # that launched it; CPU calls do not count).
 launches = 0
+
+# The kernel's block tile and widest descriptor (checked against the
+# library's own when it loads), and the blocks it keeps resident per SM
+# (its __launch_bounds__).
+TILE = 128
+MAX_DIM = 128
+BLOCKS_PER_SM = 2
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -93,12 +106,16 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.knn2_launch.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p]
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.knn2_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, f, p, p, i, p]
             lib.knn2_launch.restype = i
             for name in ("knn2_tile_rows", "knn2_tile_cols", "knn2_max_dim"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
+            sizes = (lib.knn2_tile_rows(), lib.knn2_tile_cols(), lib.knn2_max_dim())
+            if sizes != (TILE, TILE, MAX_DIM):
+                raise RuntimeError(f"{_SRC.name} tiles {sizes}, wrapper expects "
+                                   f"{(TILE, TILE, MAX_DIM)}")
             _lib = lib
     return _lib
 
@@ -114,56 +131,98 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def knn2_raw(desc0, desc1, valid1):
-    """Launch the kernel: (d1, j1, d2) per query row, before the ratio test.
+@functools.lru_cache(maxsize=64)
+def plan_splits(n0: int, n1: int, sms: int) -> tuple[int, int]:
+    """(splits, tiles_per_split) of the train axis for the tile kernel.
 
-    desc0: (N0, D) float32, desc1: (N1, D) float32, valid1: (N1,) bool, all
-    contiguous on one CUDA device; D a multiple of 16, at most 128.
+    The grid is (query row tiles) x splits; split s walks the column tiles
+    [s * tiles_per_split, (s + 1) * tiles_per_split), so the splits cover
+    every column tile exactly once. The split count is the one with the
+    fewest tile-steps per SM slot, waves x tiles_per_split, with
+    BLOCKS_PER_SM resident blocks on each of `sms` SMs (the fewest splits
+    on ties).
     """
+    row_tiles = -(-n0 // TILE)
+    col_tiles = -(-n1 // TILE)
+    slots = sms * BLOCKS_PER_SM
+    best = None
+    for s in range(1, col_tiles + 1):
+        per = -(-col_tiles // s)
+        used = -(-col_tiles // per)  # no empty split
+        cost = -(-row_tiles * used // slots) * per
+        if best is None or cost < best[0]:
+            best = (cost, used, per)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(idx: int) -> int:
+    return torch.cuda.get_device_properties(idx).multi_processor_count
+
+
+def _launch(desc0, desc1, valid1, valid0=None, ratio=0.0):
+    """Both kernels; one launch counted. Returns (work, jj, ok): d1 and d2
+    are the last 2 * N0 floats of `work` (after the per-split partials),
+    jj holds idx0 and j1, ok the ratio test (None without `valid0`)."""
     global launches
     _check("desc0", desc0, torch.float32, 2)
     _check("desc1", desc1, torch.float32, 2)
     _check("valid1", valid1, torch.bool, 1)
     n0, d = desc0.shape
     n1 = desc1.shape[0]
-    lib = _load()
     if desc1.shape[1] != d or valid1.shape[0] != n1:
         raise ValueError(
             f"shape mismatch: desc0 {tuple(desc0.shape)}, desc1 "
             f"{tuple(desc1.shape)}, valid1 {tuple(valid1.shape)}")
-    if d % 16 or d > lib.knn2_max_dim() or d == 0:
-        raise ValueError(f"descriptor width {d} unsupported (multiple of 16, <= 128)")
+    if d % 16 or d > MAX_DIM or d == 0:
+        raise ValueError(f"descriptor width {d} unsupported (multiple of 16, <= {MAX_DIM})")
     if n1 < 1 or n0 < 1:
         raise ValueError(f"empty descriptor set: N0={n0}, N1={n1}")
-    if not (desc0.device == desc1.device == valid1.device):
-        raise ValueError("desc0, desc1 and valid1 must be on one device")
     dev = desc0.device
+    if not (desc1.device == valid1.device == dev):
+        raise ValueError("desc0, desc1 and valid1 must be on one device")
+    if valid0 is not None:
+        _check("valid0", valid0, torch.bool, 1)
+        if valid0.shape[0] != n0 or valid0.device != dev:
+            raise ValueError(f"valid0 {tuple(valid0.shape)} on {valid0.device} does not "
+                             f"fit desc0 {tuple(desc0.shape)} on {dev}")
+    lib = _load()
     qsq = squared_norms(desc0)
     tsq = squared_norms(desc1)
-    tv = valid1.view(torch.uint8)
-    # Split the train axis so that query tiles x splits fills the SMs twice.
-    row_tiles = -(-n0 // lib.knn2_tile_rows())
-    col_tiles = -(-n1 // lib.knn2_tile_cols())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(col_tiles, -(-2 * sms // row_tiles)))
-    part_b1 = torch.empty((n0, splits), dtype=torch.float32, device=dev)
-    part_b2 = torch.empty((n0, splits), dtype=torch.float32, device=dev)
-    part_j = torch.empty((n0, splits), dtype=torch.int32, device=dev)
-    d1 = torch.empty((n0,), dtype=torch.float32, device=dev)
-    j1 = torch.empty((n0,), dtype=torch.int32, device=dev)
-    d2 = torch.empty((n0,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.knn2_launch(
-            desc0.data_ptr(), qsq.data_ptr(), desc1.data_ptr(), tsq.data_ptr(),
-            tv.data_ptr(), n0, n1, d, splits, part_b1.data_ptr(),
-            part_b2.data_ptr(), part_j.data_ptr(), d1.data_ptr(),
-            j1.data_ptr(), d2.data_ptr(), stream,
-        )
+    splits, per = plan_splits(n0, n1, _sm_count(dev.index))
+    n_part = 3 * n0 * splits
+    work = torch.empty((n_part + 2 * n0,), dtype=torch.float32, device=dev)
+    jj = torch.empty((2, n0), dtype=torch.int32, device=dev)  # idx0, j1
+    ok = torch.empty((n0,), dtype=torch.bool, device=dev) if valid0 is not None else None
+    w = work.data_ptr()
+    d_ptr = w + 4 * n_part  # d1, then d2
+    err = lib.knn2_launch(
+        desc0.data_ptr(), qsq.data_ptr(), desc1.data_ptr(), tsq.data_ptr(),
+        valid1.data_ptr(), n0, n1, d, splits, per, w,
+        d_ptr, jj.data_ptr() + 4 * n0, d_ptr + 4 * n0,
+        None if valid0 is None else valid0.data_ptr(),
+        ratio * ratio,  # rounded to float32, as the plain version's scalar is
+        None if valid0 is None else jj.data_ptr(),
+        None if ok is None else ok.data_ptr(),
+        # The raw handle of the current stream: what torch.cuda.current_stream
+        # gives, without building a Stream object on every call.
+        dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+    )
     if err != 0:
         raise RuntimeError(f"knn2 kernel launch failed with CUDA error {err}")
     launches += 1
-    return d1, j1, d2
+    return work, jj, ok
+
+
+def knn2_raw(desc0, desc1, valid1):
+    """Launch the kernel: (d1, j1, d2) per query row, before the ratio test.
+
+    desc0: (N0, D) float32, desc1: (N1, D) float32, valid1: (N1,) bool, all
+    contiguous on one CUDA device; D a multiple of 16, at most 128.
+    """
+    work, jj, _ = _launch(desc0, desc1, valid1)
+    d1, d2 = work[-2 * desc0.shape[0]:].view(2, -1)
+    return d1, jj[1], d2
 
 
 def knn_match_cuda(
@@ -175,16 +234,13 @@ def knn_match_cuda(
 ) -> Matches:
     """Drop-in for ``matching.knn_match`` with ``mutual=False``.
 
-    On CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    returns the plain version's result.
+    On CUDA tensors it launches the kernels (or raises): two norm
+    reductions, the tile kernel and the merge kernel, which also applies
+    the ratio test and writes idx0. On CPU tensors it returns the plain
+    version's result.
     """
     if desc0.device.type == "cpu":
         return knn_match(desc0, desc1, valid0, valid1, ratio=ratio)
-    _check("valid0", valid0, torch.bool, 1)
-    if valid0.shape[0] != desc0.shape[0] or valid0.device != desc0.device:
-        raise ValueError(f"valid0 {tuple(valid0.shape)} on {valid0.device} does not "
-                         f"fit desc0 {tuple(desc0.shape)} on {desc0.device}")
-    d1, j1, d2 = knn2_raw(desc0, desc1, valid1)
-    ok = valid0 & (d1 < (ratio * ratio) * d2) & (d1 < BIG)
-    idx0 = torch.arange(desc0.shape[0], dtype=torch.int32, device=desc0.device)
+    _, jj, ok = _launch(desc0, desc1, valid1, valid0, ratio)
+    idx0, j1 = jj
     return Matches(idx0=idx0, idx1=j1, valid=ok)

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sfm_mvs_tpu_torch.models.incremental import PipelineState
+from sfm_mvs_tpu_torch.models.incremental import PipelineState, resolve_device
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops.sift import Features
 
@@ -34,8 +34,9 @@ def save_map(path: str, state: MapState) -> None:
     np.savez_compressed(path, **_arrays("map_", state))
 
 
-def load_map(path: str, device="cpu") -> MapState:
-    return _tensors(np.load(path), "map_", MapState, device)
+def load_map(path: str, device="cuda") -> MapState:
+    """The map of a checkpoint on `device` (without a GPU pass device="cpu")."""
+    return _tensors(np.load(path), "map_", MapState, resolve_device(device))
 
 
 def save_pipeline(path: str, pstate: PipelineState, frame_index: int) -> None:
@@ -48,8 +49,10 @@ def save_pipeline(path: str, pstate: PipelineState, frame_index: int) -> None:
     np.savez_compressed(path, **payload)
 
 
-def load_pipeline(path: str, device="cpu") -> tuple[PipelineState, int]:
-    """(PipelineState on `device`, frame index) from a checkpoint."""
+def load_pipeline(path: str, device="cuda") -> tuple[PipelineState, int]:
+    """(PipelineState on `device`, frame index) from a checkpoint (without a
+    GPU pass device="cpu")."""
+    device = resolve_device(device)
     z = np.load(path)
     return (
         PipelineState(map=_tensors(z, "map_", MapState, device),

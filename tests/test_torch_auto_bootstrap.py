@@ -115,7 +115,7 @@ def test_view_graph_matches_jax(graphs):
 
 def test_auto_bootstrap_reconstructs_degenerate_start(degenerate_start_scene, graphs):
     imgs, Rt_gt, K = degenerate_start_scene
-    sfm = IncrementalSfM(_cfg(config, K, bootstrap="auto", view_graph_window=3))
+    sfm = IncrementalSfM(_cfg(config, K, bootstrap="auto", view_graph_window=3), device="cpu")
     state = sfm.run(imgs)
     assert sfm.bootstrap_pair == jexhaustive.best_bootstrap_pair(graphs[0])
     cv = N(state.cam_valid)

@@ -53,7 +53,7 @@ def _assert_same(ours, ref):
 def test_checkpoints_move_both_ways(jax_pipeline, tmp_path):
     jps = jax_pipeline
     jckpt.save_pipeline(str(tmp_path / "j" / "frame_00007.npz"), jps, 7)
-    ps, frame = ckpt.load_pipeline(str(tmp_path / "j" / "frame_00007.npz"))
+    ps, frame = ckpt.load_pipeline(str(tmp_path / "j" / "frame_00007.npz"), device="cpu")
     assert frame == 7
     _assert_same(ps, jps)
 
@@ -67,7 +67,7 @@ def test_checkpoints_move_both_ways(jax_pipeline, tmp_path):
 
     ckpt.save_map(str(tmp_path / "m.npz"), ps.map)
     jm = jckpt.load_map(str(tmp_path / "m.npz"))
-    tm = ckpt.load_map(str(tmp_path / "m.npz"))
+    tm = ckpt.load_map(str(tmp_path / "m.npz"), device="cpu")
     for name, a, b, c in zip(jm._fields, tm, jm, jps.map):
         np.testing.assert_array_equal(N(a), N(c), err_msg=name)
         np.testing.assert_array_equal(N(b), N(c), err_msg=name)
@@ -86,12 +86,12 @@ def test_resumed_run_equals_uninterrupted(tmp_path):
         ransac=config.RansacConfig(essential_iters=256, pnp_iters=256, homography_iters=256),
         map=config.MapConfig(max_cameras=8, max_points=4096),
         ba=config.BaConfig(enabled=True, max_iterations=5))
-    full = IncrementalSfM(cfg, checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    full = IncrementalSfM(cfg, device="cpu", checkpoint_dir=str(tmp_path), checkpoint_every=2)
     s_full = full.run(imgs)
     assert sorted(p.name for p in tmp_path.iterdir()) == ["frame_00002.npz", "frame_00004.npz"]
-    ps, frame = ckpt.load_pipeline(str(tmp_path / "frame_00002.npz"))
+    ps, frame = ckpt.load_pipeline(str(tmp_path / "frame_00002.npz"), device="cpu")
     assert frame == 2
-    resumed = IncrementalSfM(cfg)
+    resumed = IncrementalSfM(cfg, device="cpu")
     s_res = resumed.run(imgs, resume_state=ps, resume_frame=frame)
     assert [s["frame"] for s in resumed.stats] == [3, 4, 5]
     for name, a, b in zip(s_full._fields, s_res, s_full):

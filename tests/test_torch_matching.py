@@ -107,3 +107,41 @@ def test_match_with_config_routes_like_jax(rng, use_kernel, mutual):
     ref = jm.match_with_config(J(d0), J(d1), J(v0), J(v1), cfg)
     np.testing.assert_array_equal(N(ours.valid), N(ref.valid))
     np.testing.assert_array_equal(N(ours.idx1), N(ref.idx1))
+
+
+@pytest.mark.parametrize("n1", [1, 100, 4096, 4097])
+@pytest.mark.parametrize("n0", [1, 300, 4096])
+def test_plan_splits_covers_every_column_tile_once(n0, n1):
+    """The CUDA kernel's train splits: each 128-column tile in exactly one
+    split, no split empty, on cards of several sizes."""
+    col_tiles = -(-n1 // matching_cuda.TILE)
+    for sms in (1, 66, 132):
+        splits, per = matching_cuda.plan_splits(n0, n1, sms)
+        covered = [t for s in range(splits) for t in range(s * per, min(col_tiles, (s + 1) * per))]
+        assert sorted(covered) == list(range(col_tiles))
+        assert all(s * per < col_tiles for s in range(splits))
+    if (n0, n1) == (4096, 4096):  # the main path: 32 row tiles x 8 splits, one wave
+        assert matching_cuda.plan_splits(n0, n1, 132) == (8, 4)
+
+
+def test_ratio_test_rounds_ratio_squared_to_float32(rng):
+    """The plain ratio test decides d1 < float32(ratio * ratio) * d2 with one
+    float32 product, on values at and one ulp either side of that bound and
+    of the bound in float64. The CUDA merge kernel copies this rounding."""
+    d2 = rng.uniform(1e-3, 4.0, 400).astype(np.float32)
+    n_double_differs = 0
+    for ratio in [0.6, 0.7, 0.75, 0.8, 0.9, *rng.uniform(0.5, 0.95, 20)]:
+        r2 = np.float32(ratio * ratio)
+        edge32 = r2 * d2  # float32 product
+        edge64 = (ratio * ratio * d2.astype(np.float64)).astype(np.float32)
+        cands = [e2 for e in (edge32, edge64)
+                 for e2 in (e, np.nextafter(e, np.float32(0)), np.nextafter(e, np.float32(np.inf)))]
+        d1 = np.concatenate(cands)
+        dd2 = np.tile(d2, len(cands))
+        valid0 = np.ones(len(d1), bool)
+        valid0[::7] = False
+        ok = matching.ratio_test(T(valid0), T(d1), T(dd2), ratio)
+        want = valid0 & (d1 < r2 * dd2) & (d1 < np.float32(matching.BIG))
+        np.testing.assert_array_equal(N(ok), want)
+        n_double_differs += int(((d1 < ratio * ratio * dd2.astype(np.float64)) != (d1 < r2 * dd2)).sum())
+    assert n_double_differs > 0  # the cases tell float32 rounding from float64

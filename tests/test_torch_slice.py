@@ -110,7 +110,7 @@ def test_incremental_run_both_packages(scene):
     jstate = jsfm.run(imgs)
     _check_run(np.asarray(jstate.poses)[np.asarray(jstate.cam_valid)], Rt_gt, jsfm.stats)
 
-    sfm = incremental.IncrementalSfM(cfg)
+    sfm = incremental.IncrementalSfM(cfg, device="cpu")
     state = sfm.run(imgs)
     _check_run(N(state.poses)[N(state.cam_valid)], Rt_gt, sfm.stats)
     assert int(state.num_points) > 100
@@ -129,7 +129,7 @@ def test_ba_and_finalize_both_packages(scene):
 
     results = []
     for sfm in (jinc.IncrementalSfM(with_ba(jcfg, jconfig)),
-                incremental.IncrementalSfM(with_ba(cfg, config))):
+                incremental.IncrementalSfM(with_ba(cfg, config), device="cpu")):
         run = sfm.run(imgs)
         _check_run(N(run.poses)[N(run.cam_valid)], Rt_gt, sfm.stats)
         state = sfm.finalize()
@@ -153,4 +153,4 @@ def test_unported_options_raise(scene):
                 dataclasses.replace(cfg, ba=config.BaConfig(
                     enabled=True, refine_intrinsics_per_camera=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            incremental.IncrementalSfM(bad).run(imgs)
+            incremental.IncrementalSfM(bad, device="cpu").run(imgs)
