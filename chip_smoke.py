@@ -50,7 +50,24 @@ Phases, each printing one line (any failure exits non-zero):
    ``mvs.densify_map`` with the GT harness's settings; checks depth
    relative error (median < 0.01, RMS < 0.03), coverage of GT-valid pixels
    > 0.65 and finite points, beside the v5e quality record.
-10. the last line: {"ok": true, "device": {...}}.
+10. loop closure (runs between phases 7 and 8, on the same PNGs): the CLI
+    with ``--bootstrap seq --essential-solver 5pt --grad-sampling bilinear
+    --ba --loop-close 4 --finalize``; checks 57 poses at ATE < 0.05, the
+    finalize event's loop-closure observations (> 0), merged points and
+    robust cost, a finalize cost below 1 px^2, and K1 launches = bootstrap
+    + registrations + the 1596-pair view graph + 2 per loop pair.
+11. BA of the intrinsics: the staircase rendered with radial distortion
+    (-0.18, 0.03), the driver unaware of it (BA off), then
+    ``ba.bundle_adjust_map_intrinsics(max_iterations=40, cg_iters=30)``
+    (k1 < 0 within 50% of -0.18, cost halved, ATE improved) and
+    ``bundle_adjust_map_percam_intrinsics`` (cost not raised, finite rows,
+    camera 0's row exactly [1, 0, 0]); 56 K1 launches.
+12. --pipeline global: an 11-view textured plane at 968x648,
+    ``GlobalSfM(cfg, device="cuda").run`` (11/11 cameras, > 100 points,
+    global BA cost < 4 px^2), ``final_sweep`` (the map grows), then the
+    CLI with ``--pipeline global --finalize`` (rc 0, 11 poses); K1
+    launches = 2 x (10 pairs + 10 swept pairs).
+13. the last line: {"ok": true, "device": {...}}.
 
 ``--profile`` adds, after phase 9, torch.profiler over one
 ``mvs._plane_sweep_batch`` call of 4 reference frames.
@@ -838,6 +855,221 @@ def phase_resume():
     return launches
 
 
+class Capture:
+    """Records the return values of a module function while active."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.values = owner, name, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.owner, self.name)
+
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.values.append(out)
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def phase_loop_cli(Rt_gt):
+    """Phase 10: the incremental CLI with the flags phases 4-9 leave out: the
+    five-point solver, bilinear SIFT sampling, BA, and loop closure (the
+    full 1596-pair view graph, the 4 strongest non-adjacent pairs, injection
+    both ways, robust BA, duplicate merging) in finalize."""
+    from sfm_mvs_tpu_torch import cli, native
+    from sfm_mvs_tpu_torch.models import exhaustive, incremental
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+
+    out = "chiprun_out/loop"
+    shutil.rmtree(out, ignore_errors=True)
+    args = cli_args(out, "--bootstrap", "seq", "--essential-solver", "5pt", "--grad-sampling",
+                    "bilinear", "--ba", "--ba-iterations", "8", "--loop-close", "4",
+                    "--finalize", "--no-gif")
+    Sfm = incremental.IncrementalSfM
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with StageClock([(native.ImageLoader, "get", "image load"), (Sfm, "run", "run"),
+                     (Sfm, "finalize", "finalize"),
+                     (exhaustive, "build_view_graph", "view graph"),
+                     (exhaustive, "inject_reobservations", "injection")]) as clock, \
+            Capture(exhaustive, "strongest_loop_pairs") as pairs:
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = matching_cuda.launches
+
+    n = len(os.listdir(FRAME_DIR))
+    n_vals, n_poses, ate = _pose_csv_quality(f"{out}/pose.csv", Rt_gt)
+    with open(f"{out}/metrics.jsonl") as fh:
+        records = [json.loads(line) for line in fh]
+    fin = next(r for r in records if r["event"] == "finalize")
+    errs = [r["reproj_error"] for r in records if r["event"] == "frame"]
+    loop_pairs = pairs.values[0] if pairs.values else []
+    graph_pairs = n * (n - 1) // 2
+    expected = 1 + (n - 2) + graph_pairs + 2 * len(loop_pairs)
+    log(f"[loop] rc {rc}; pose.csv {n_poses} poses ATE {ate:.6f}; reproj_px max "
+        f"{max(errs):.4f}; loop pairs {loop_pairs}; loop-closure observations "
+        f"{fin.get('loop_closure_obs')}; merged points {fin.get('merged_points')}; map points "
+        f"{fin['points']}; robust cost {fin.get('robust_cost', float('nan')):.4f} px^2; final "
+        f"cost {fin['round1_cost']:.4f} px^2")
+    log(f"[loop] K1 launches {launches} (expected {expected} = 1 bootstrap + {n - 2} "
+        f"registrations + {graph_pairs} view-graph pairs + 2 x {len(loop_pairs)} loop pairs)")
+    log("[loop] stage wall (synchronized host clock): "
+        + ", ".join(f"{k} {clock.total(k):.2f} s" for k in
+                    ("image load", "run", "finalize", "view graph", "injection"))
+        + f"; cli.main total {total_s:.2f} s")
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    if n_vals != 9 + n * 12 or not ate < 0.05:
+        raise AssertionError(f"pose.csv: {n_vals} values (expected {9 + n * 12}), ATE {ate}")
+    if not fin.get("loop_closure_obs", 0) > 0 or "merged_points" not in fin \
+            or "robust_cost" not in fin:
+        raise AssertionError(f"finalize event lacks loop closure: {sorted(fin)}")
+    if not fin["round1_cost"] < 1.0:
+        raise AssertionError(f"finalize cost {fin['round1_cost']} >= 1 px^2")
+    if launches != expected:
+        raise AssertionError(f"K1 launched {launches} times, expected {expected}")
+    return launches
+
+
+DIST = (-0.18, 0.03)
+
+
+def phase_intrinsics(cfg):
+    """Phase 11: the staircase rendered with radial distortion (k1, k2) =
+    (-0.18, 0.03), reconstructed by a driver unaware of it (BA off), then
+    the shared-intrinsics BA (the full-size twin of
+    tests/test_distortion.py's k1 recovery) and the per-camera variant."""
+    from sfm_mvs_tpu_torch.models import ba
+    from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
+
+    t0 = time.time()
+    imgs, Rt_gt, _ = render_staircase_sequence(**SCENE, dist=DIST)
+    render_s = time.time() - t0
+    # BA off, as in the test this mirrors: a per-frame pinhole BA absorbs
+    # most of the distortion into the structure first (PERF.md, section 4).
+    sfm = IncrementalSfM(cfg, device=DEVICE)
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    state = sfm.run(imgs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = matching_cuda.launches
+    n_cams, ate0, _ = _pose_quality(state, Rt_gt)
+    t0 = time.perf_counter()
+    st_shared, stats, intr = ba.bundle_adjust_map_intrinsics(state, max_iterations=40, cg_iters=30)
+    torch.cuda.synchronize()
+    shared_s = time.perf_counter() - t0
+    _, ate1, _ = _pose_quality(st_shared, Rt_gt)
+    s, k1, k2 = (float(v) for v in intr.cpu())
+    t0 = time.perf_counter()
+    _, pstats, pc = ba.bundle_adjust_map_percam_intrinsics(state)
+    torch.cuda.synchronize()
+    percam_s = time.perf_counter() - t0
+    rows = pc[:n_cams].cpu().numpy()
+    log(f"[intr] distorted render {render_s:.1f} s; run, BA off (k1 = k2 = 0 assumed): cameras "
+        f"{n_cams}/{len(imgs)} ATE {ate0:.6f} in {run_s:.1f} s; K1 launches {launches} "
+        f"(expected {len(imgs) - 1})")
+    log(f"[intr] shared [s, k1, k2] = [{s:.5f}, {k1:.5f}, {k2:.5f}] (true k1, k2 = {DIST}); cost "
+        f"{float(stats.initial_cost):.4f} -> {float(stats.final_cost):.4f} px^2 in "
+        f"{int(stats.iterations)} iterations; ATE {ate0:.6f} -> {ate1:.6f}; {shared_s:.2f} s")
+    log(f"[intr] per camera: cost {float(pstats.initial_cost):.4f} -> "
+        f"{float(pstats.final_cost):.4f} px^2; row 0 {rows[0].tolist()}; k1 median "
+        f"{float(np.median(rows[1:, 1])):.5f}; {percam_s:.2f} s")
+    if n_cams != len(imgs):
+        raise AssertionError(f"distorted run registered {n_cams}/{len(imgs)} cameras")
+    if not (k1 < 0 and abs(k1 - DIST[0]) < 0.5 * abs(DIST[0])):
+        raise AssertionError(f"recovered k1 {k1}, expected within 50% of {DIST[0]}")
+    if not float(stats.final_cost) < 0.5 * float(stats.initial_cost):
+        raise AssertionError("shared-intrinsics BA did not halve the cost")
+    if not ate1 < ate0:
+        raise AssertionError(f"ATE after intrinsics BA {ate1} not below {ate0}")
+    if not float(pstats.final_cost) <= float(pstats.initial_cost):
+        raise AssertionError("per-camera intrinsics BA raised the cost")
+    if not np.isfinite(rows).all() or rows[0].tolist() != [1.0, 0.0, 0.0]:
+        raise AssertionError(f"per-camera intrinsics: non-finite rows or row 0 {rows[0]}")
+    if launches != len(imgs) - 1:
+        raise AssertionError(f"K1 launched {launches} times, expected {len(imgs) - 1}")
+    return launches
+
+
+PLANE = dict(num_cameras=11, image_size=(968, 648), focal=1200.0, radius=6.0, arc_degrees=30.0)
+PLANE_DIR = "chiprun_out/plane_frames"
+
+
+def phase_global(cfg):
+    """Phase 12: --pipeline global on an 11-view textured plane (test.py's
+    fountain-P11 has 11 views): ``GlobalSfM.run`` with global BA, its
+    final sweep, then the CLI with --pipeline global --finalize."""
+    from sfm_mvs_tpu_torch import cli
+    from sfm_mvs_tpu_torch.models import ba
+    from sfm_mvs_tpu_torch.models.tracks import GlobalSfM
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.utils.synthetic import render_plane_sequence
+
+    imgs, Rt_gt, _ = render_plane_sequence(**PLANE)
+    F = len(imgs)
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    g = GlobalSfM(cfg, device=DEVICE)
+    state = g.run(imgs, run_ba=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_cams = int(state.cam_valid.sum())
+    pts_run = int(state.num_points)
+    cost = float(ba._cost(ba.problem_from_map(state)))
+    t0 = time.perf_counter()
+    swept = g.final_sweep(imgs)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    pts_swept = int(swept.num_points)
+    _, ate, _ = _pose_quality(swept, Rt_gt)
+
+    shutil.rmtree(PLANE_DIR, ignore_errors=True)
+    os.makedirs(PLANE_DIR)
+    for i, im in enumerate(imgs):
+        write_png_gray(f"{PLANE_DIR}/frame_{i:03d}.png", (np.clip(im, 0, 1) * 255).astype(np.uint8))
+    out = "chiprun_out/global"
+    shutil.rmtree(out, ignore_errors=True)
+    W, H = PLANE["image_size"]
+    f = PLANE["focal"]
+    args = ["--image-dir", PLANE_DIR, "--out", out, "--fx", str(f), "--fy", str(f),
+            "--cx", str(W / 2.0), "--cy", str(H / 2.0), "--downscale", "1",
+            "--max-features", "4096", "--lowe-ratio", "0.75", "--contrast-threshold", "0.012",
+            "--max-cameras", "64", "--max-points", "16384", "--device", "cuda",
+            "--pipeline", "global", "--finalize", "--no-gif"]
+    t0 = time.perf_counter()
+    rc = cli.main(args)
+    cli_s = time.perf_counter() - t0
+    launches = matching_cuda.launches
+    n_vals, n_poses, ate_cli = _pose_csv_quality(f"{out}/pose.csv", Rt_gt)
+    shutil.rmtree(PLANE_DIR)
+    expected = 2 * ((F - 1) + (F - 1))
+    log(f"[global] run: cameras {n_cams}/{F} points {pts_run} global BA cost {cost:.4f} px^2 "
+        f"(before BA {g.stats[-1]['cost_before']:.4f}) in {run_s:.1f} s; final sweep -> "
+        f"{pts_swept} points in {sweep_s:.1f} s; ATE {ate:.6f} (planar: E poses ambiguous, "
+        f"not gated)")
+    log(f"[global] CLI --pipeline global --finalize: rc {rc}, pose.csv {n_poses} poses ATE "
+        f"{ate_cli:.6f} in {cli_s:.1f} s; K1 launches {launches} (expected {expected} = 2 x "
+        f"({F - 1} pairs + {F - 1} swept pairs))")
+    if n_cams != F or not pts_run > 100 or not cost < 4.0:
+        raise AssertionError(f"global run: {n_cams}/{F} cameras, {pts_run} points, cost {cost}")
+    if not pts_swept > pts_run:
+        raise AssertionError(f"final sweep did not grow the map ({pts_run} -> {pts_swept})")
+    if rc != 0 or n_vals != 9 + 12 * F:
+        raise AssertionError(f"global CLI rc {rc}, pose.csv {n_vals} values")
+    if launches != expected:
+        raise AssertionError(f"K1 launched {launches} times, expected {expected}")
+    return launches
+
+
 MVS_RECORD = dict(rel_rms=0.01421, median=0.00299, under_1pct=0.8919, coverage_gt=0.8008,
                   points=5353610)  # artifacts/MVS_r05.json (v5e; quality only)
 
@@ -977,7 +1209,7 @@ def phase_profile(imgs, cfg, n_frames=10):
     lam = torch.tensor(1e-3, device=dev)
 
     def lm_iteration():
-        dc, dp = ba._lm_solve(prob, lam, 15)
+        dc, dp, _ = ba._lm_solve(prob, lam, 15)
         ba._cost(prob._replace(cam_params=prob.cam_params + dc, points=prob.points + dp))
 
     lm_iteration()
@@ -1075,8 +1307,11 @@ def main(argv) -> int:
     stack8 = stage_u8(imgs)
     write_frames(stack8)
     launches += phase_cli(Rt_gt)
+    launches += phase_loop_cli(Rt_gt)
     launches += phase_resume()
     mvs_map = phase_mvs(stack8, bench_map, Rt_gt, gt_depths)
+    launches += phase_intrinsics(cfg)
+    launches += phase_global(cfg)
     if "--profile" in argv:
         phase_profile(imgs, cfg)
         profile_sweep(stack8, mvs_map)

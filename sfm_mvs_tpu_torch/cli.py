@@ -45,12 +45,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-upsample", action="store_true", help="skip 2x input doubling")
     p.add_argument("--grad-sampling", choices=["nearest_polar", "bilinear"],
                    default="nearest_polar",
-                   help="orientation/descriptor gradient sampling (bilinear: not "
-                        "ported yet)")
+                   help="orientation/descriptor gradient sampling (nearest_polar: "
+                        "one read of the bf16 polar maps, OpenCV's per-pixel reads; "
+                        "bilinear: interpolated (dx, dy))")
     p.add_argument("--essential-threshold", type=float, default=2.0)
     p.add_argument("--essential-solver", choices=["8pt", "5pt"], default="8pt",
-                   help="minimal E solver: 8-point or Nister 5-point (5pt: not "
-                        "ported yet)")
+                   help="minimal E solver: 8-point or Nister 5-point "
+                        "(the reference's OpenCV solver; planar-safe)")
     p.add_argument("--pnp-threshold", type=float, default=4.0)
     p.add_argument("--ba", action="store_true", help="enable bundle adjustment")
     p.add_argument("--ba-cadence", type=int, default=1, help="BA every K frames")
@@ -66,18 +67,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "view-graph pair")
     p.add_argument("--loop-close", type=int, default=0,
                    help="inject re-observations from the top-K strong non-adjacent "
-                        "pairs before the final BA (not ported yet)")
+                        "pairs before the final BA")
     p.add_argument("--pipeline", choices=["incremental", "global"], default="incremental",
                    help="incremental = sfm.py-style PnP registration; global = "
-                        "test.py-style tracks + global BA (not ported yet)")
+                        "test.py-style homography-chained tracks + global BA")
     p.add_argument("--ba-local-window", type=int, default=0,
                    help="local BA: optimize only the last K cameras")
     p.add_argument("--ba-refine-intrinsics", action="store_true",
                    help="refine shared [focal_scale, k1, k2] in the final global BA "
-                        "(not ported yet)")
+                        "(notebook prototype's camera model)")
     p.add_argument("--ba-refine-intrinsics-per-camera", action="store_true",
-                   help="refine (f, k1, k2) per camera in the final global BA "
-                        "(not ported yet)")
+                   help="refine (f, k1, k2) per camera in the final global BA (the "
+                        "notebook's full 9-param camera); recovered blocks are "
+                        "reported in the finalize info")
     p.add_argument("--batch-detect", type=int, default=0,
                    help="pre-detect features in chunks of this size")
     p.add_argument("--no-pallas-matcher", action="store_true",
@@ -169,9 +171,6 @@ def _optional_artifact(path: str, fn, *args, **kwargs) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.pipeline == "global":
-        raise NotImplementedError(
-            "--pipeline global (models/tracks.py:GlobalSfM) is not ported yet (ROADMAP A12)")
     cfg = config_from_args(args)
     dev = _device(args.device)
 
@@ -210,12 +209,31 @@ def main(argv=None) -> int:
             resume_state, resume_frame = ckpt.load_pipeline(latest, device=dev)
             print(f"resuming from {latest} (frame {resume_frame})")
 
-    state = sfm.run(grays, bgrs, seed=args.seed, resume_state=resume_state,
-                    resume_frame=resume_frame, batch_detect=args.batch_detect)
-    if args.finalize or args.sweep or args.loop_close or args.ba_refine_intrinsics \
-            or args.ba_refine_intrinsics_per_camera:
+    incremental_only = (args.sweep or args.loop_close or args.ba_refine_intrinsics
+                        or args.ba_refine_intrinsics_per_camera)
+    if args.pipeline == "global":
+        from sfm_mvs_tpu_torch.models.tracks import GlobalSfM
+
+        gsfm = GlobalSfM(cfg, device=dev)
+        state = gsfm.run(grays, seed=args.seed, run_ba=True)
+        state = gsfm.final_sweep(grays)
+        sfm.stats = [{**st, "reproj_error": st.get("reproj_error", 0.0)}
+                     for st in gsfm.stats if "frame" in st]
+        if incremental_only:
+            print("warning: --sweep/--loop-close/--ba-refine-intrinsics are "
+                  "incremental-pipeline features and are ignored with "
+                  "--pipeline global (use --finalize for cull + global BA)", file=sys.stderr)
+    else:
+        state = sfm.run(grays, bgrs, seed=args.seed, resume_state=resume_state,
+                        resume_frame=resume_frame, batch_detect=args.batch_detect)
+    if args.pipeline == "incremental" and (args.finalize or incremental_only):
         state = sfm.finalize(ba_iterations=args.ba_iterations)
         print(f"finalize: {sfm.finalize_info}")
+    elif args.finalize:
+        from sfm_mvs_tpu_torch.models.refine import finalize_map
+
+        state, info = finalize_map(state, max_iterations=args.ba_iterations)
+        print(f"finalize: {info}")
     n = io.map_to_ply(os.path.join(args.out, "sparse.ply"), state,
                       scale=cfg.ply_scale, outlier_offset=cfg.ply_outlier_offset)
     if args.densify:

@@ -21,6 +21,7 @@ import dataclasses
 import warnings
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from sfm_mvs_tpu_torch.models import ba as ba_mod
@@ -150,19 +151,26 @@ def densify_sweep(state: MapState, feats: Sequence[Features],
 
 
 def redetect_for_sweep(images_gray: Sequence, cfg: SfmConfig,
-                       K: Optional[torch.Tensor] = None) -> list[Features]:
+                       K: Optional[torch.Tensor] = None, device="cuda") -> list[Features]:
     """Detect sweep features at the sweep's (denser) budget for each frame.
 
-    Images (numpy arrays or tensors) are detected on K's device when K is
-    given, else where they lie. With nonzero cfg.k1/k2 (and K given) the
-    keypoints are undistorted once here, as the driver does at detection.
+    Frames that are tensors are detected where they lie; numpy frames on
+    K's device when K is given, else on `device` (default ``cuda``, which
+    raises without CUDA; pass ``device="cpu"`` there). With nonzero
+    cfg.k1/k2 (and K given) the keypoints are undistorted once here, as the
+    driver does at detection.
     """
-    from sfm_mvs_tpu_torch.models.incremental import _undistort_features
+    from sfm_mvs_tpu_torch.models.incremental import _undistort_features, resolve_device
 
     fc = sweep_frontend_config(cfg)
-    dev = None if K is None else K.device
-    feats = [sift.detect_and_compute(torch.as_tensor(g, dtype=torch.float32, device=dev), fc)
-             for g in images_gray]
+    dev = None
+    feats = []
+    for g in images_gray:
+        if not isinstance(g, torch.Tensor):
+            if dev is None:
+                dev = K.device if K is not None else resolve_device(device)
+            g = torch.as_tensor(np.asarray(g, np.float32), device=dev)
+        feats.append(sift.detect_and_compute(g.to(torch.float32), fc))
     if K is not None and (cfg.k1 != 0.0 or cfg.k2 != 0.0):
         feats = [_undistort_features(f, K, cfg) for f in feats]
     return feats

@@ -1,15 +1,18 @@
-"""View graph: pairwise match strength and geometry for bootstrap selection.
+"""View graph and loop closure: pairwise match strength, geometry and
+re-observations between distant frames.
 
-PyTorch port of the view-graph part of ``sfm_mvs_tpu/models/exhaustive.py``
-(``ViewGraph``, ``_pair_geometry``, ``build_view_graph``,
-``best_bootstrap_pair``). Every frame pair within the window is matched,
-gets an E-RANSAC inlier count, a relative pose and a parallax angle; the
-auto-bootstrap driver picks its initial pair from them. The JAX package
-matches these pairs with its plain XLA matcher; here the pairs go through
-the 2-NN kernel on CUDA tensors (the same function; its wrapper takes the
-plain version for CPU tensors), or the plain matcher with
-``use_pallas_matcher=False``. The loop-closure and stitching functions of
-that module wait for ROADMAP A12.
+PyTorch port of ``sfm_mvs_tpu/models/exhaustive.py``: ``ViewGraph``,
+``_pair_geometry``, ``build_view_graph`` and ``best_bootstrap_pair`` (every
+frame pair within the window is matched and gets an E-RANSAC inlier
+count, a relative pose and a parallax angle; the auto-bootstrap driver
+picks its initial pair from them), and the loop closure of
+``IncrementalSfM.finalize``: ``strongest_loop_pairs`` and
+``inject_reobservations``. The JAX package matches these pairs with its
+plain XLA matcher; here they go through the 2-NN kernel on CUDA tensors
+(the same function; its wrapper takes the plain version for CPU tensors),
+or the plain matcher with ``use_pallas_matcher=False``. The batched
+stitching functions of that module (``inject_reobservations_batch`` and
+the rest, which only ``benchmarks/large_scene.py`` calls) are not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from sfm_mvs_tpu_torch.models import map_store
 from sfm_mvs_tpu_torch.models.incremental import resolve_device
 from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift
 from sfm_mvs_tpu_torch.ops.epipolar import recover_pose
@@ -40,12 +44,20 @@ class ViewGraph(NamedTuple):
     parallax_deg: np.ndarray  # (M,) mean rotation-compensated ray angle
 
 
+def _match(f0: Features, f1: Features, cfg: SfmConfig) -> matching.Matches:
+    """The pair's ratio-test matches: K1 (its wrapper takes the plain
+    version on CPU tensors), or the plain matcher with use_pallas_matcher
+    off."""
+    fc = cfg.frontend
+    match = knn_match_cuda if fc.use_pallas_matcher else matching.knn_match
+    return match(f0.desc, f1.desc, f0.valid, f1.valid, ratio=fc.lowe_ratio)
+
+
 def _pair_geometry(gen, f0: Features, f1: Features, K, cfg: SfmConfig):
     """Match + E-RANSAC + pose + parallax for one pair. Returns
     (num_matches, num_inliers, R, t, parallax_deg) as device tensors."""
-    fc, rc = cfg.frontend, cfg.ransac
-    match = knn_match_cuda if fc.use_pallas_matcher else matching.knn_match
-    m = match(f0.desc, f1.desc, f0.valid, f1.valid, ratio=fc.lowe_ratio)
+    rc = cfg.ransac
+    m = _match(f0, f1, cfg)
     n0 = projection.normalize_points(f0.xy[m.idx0.long()], K)
     n1 = projection.normalize_points(f1.xy[m.idx1.long()], K)
     res = ransac.ransac_essential(gen, n0, n1, m.valid, 0.5 * (K[0, 0] + K[1, 1]),
@@ -124,3 +136,69 @@ def best_bootstrap_pair(graph: ViewGraph, min_inliers: int = 50,
                 return int(graph.pair_i[idx]), int(graph.pair_j[idx])
     idx = order[0]
     return int(graph.pair_i[idx]), int(graph.pair_j[idx])
+
+
+def strongest_loop_pairs(graph: ViewGraph, top_k: int, min_gap: int = 3,
+                         min_inliers: int = 30) -> list[tuple[int, int]]:
+    """The top-K strong non-adjacent pairs: loop-closure candidates whose
+    re-observations tie distant cameras together before the final BA."""
+    gaps = np.abs(graph.pair_j - graph.pair_i)
+    cand = np.where((gaps >= min_gap) & (graph.num_inliers >= min_inliers))[0]
+    cand = cand[np.argsort(-graph.num_inliers[cand])][:top_k]
+    return [(int(graph.pair_i[i]), int(graph.pair_j[i])) for i in cand]
+
+
+def _reobservation_candidates(state, cam_j, feats_i: Features, feats_j: Features,
+                              track_i, cfg: SfmConfig, gen, max_err_px,
+                              epipolar_verify: bool, sample_idx=None):
+    """Match and gate one pair without writing: (tids, uv_j, ok, err), err
+    the reprojection error in camera j."""
+    rc = cfg.ransac
+    m = _match(feats_i, feats_j, cfg)
+    uv_i, uv_j, mvalid = matching.gather_match_points(feats_i.xy, feats_j.xy, m)
+    if epipolar_verify:
+        K = state.K
+        n_i = projection.normalize_points(uv_i, K)
+        n_j = projection.normalize_points(uv_j, K)
+        res = ransac.ransac_essential(gen, n_i, n_j, mvalid, 0.5 * (K[0, 0] + K[1, 1]),
+                                      threshold_px=rc.essential_threshold_px,
+                                      iters=rc.essential_iters, sample_idx=sample_idx)
+        # A real two-view geometry first: a spurious far pair yields a
+        # degenerate E with few inliers.
+        mvalid = mvalid & res.inliers & (res.num_inliers >= rc.stitch_min_inliers)
+    gate_px = rc.pnp_threshold_px if max_err_px is None else max_err_px
+    tids = track_i[m.idx0.long()]
+    P = state.points.shape[0]
+    safe = torch.clamp(tids, 0, P - 1).long()
+    has = mvalid & (tids >= 0) & state.point_valid[safe]
+    cam = torch.as_tensor(cam_j, device=safe.device).long()
+    uv_proj, depth = projection.project_depth(state.points[safe], state.poses[cam], state.K)
+    err = torch.linalg.norm(uv_proj - uv_j, dim=-1)
+    fresh = ~state.obs_mask[safe, cam]
+    return tids, uv_j, has & (depth > 0) & (err < gate_px) & fresh, err
+
+
+def inject_reobservations(state, cam_i, cam_j, feats_i: Features, feats_j: Features,
+                          track_i, cfg: SfmConfig, gen=None, max_err_px=None,
+                          epipolar_verify: bool = False, sample_idx=None):
+    """Add loop-closure observations: match the (non-adjacent) pair
+    (cam_i, cam_j); wherever frame i's feature already tracks a map point,
+    record that point's observation in camera j, gated by positive depth,
+    the reprojection error and not being observed there yet. One
+    direction: call twice with the arguments swapped for both.
+
+    The default gate (`max_err_px=None`: cfg.ransac.pnp_threshold_px)
+    accepts only matches that agree with the current geometry. For a
+    drifted map pass `epipolar_verify=True` with a generator `gen` (or
+    injected RANSAC samples `sample_idx`, (essential_iters, 8)): matches
+    are verified by the pair's own E-RANSAC, a drift-independent check,
+    and `max_err_px` should be loosened to a sanity bound, so that the
+    global BA sees the bend and pulls it out. Returns (state, num_injected).
+    """
+    if epipolar_verify and gen is None and sample_idx is None:
+        raise ValueError("epipolar_verify=True requires a generator")
+    tids, uv_j, ok, _ = _reobservation_candidates(state, cam_j, feats_i, feats_j, track_i,
+                                                  cfg, gen, max_err_px, epipolar_verify,
+                                                  sample_idx)
+    state = map_store.append_observations(state, cam_j, tids, uv_j, ok)
+    return state, ok.sum()

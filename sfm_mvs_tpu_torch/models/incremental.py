@@ -261,8 +261,9 @@ class IncrementalSfM:
     (``bootstrap="auto"``), bundle adjustment every ``cfg.ba.cadence``
     frames (global or windowed), a checkpoint every ``checkpoint_every``
     frames and resume from one, per-frame records to ``metrics`` (a
-    ``utils.metrics.MetricsLogger``), and ``finalize`` (compact, cull +
-    global BA, the densification sweep).
+    ``utils.metrics.MetricsLogger``), and ``finalize`` (compact, loop
+    closure, cull + global BA with duplicate merging, the densification
+    sweep, BA of the intrinsics).
     """
 
     def __init__(self, config: Optional[SfmConfig] = None, device="cuda", metrics=None,
@@ -273,15 +274,6 @@ class IncrementalSfM:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.stats: list[dict] = []
-
-    def _check_supported(self) -> None:
-        cfg = self.config
-        if cfg.loop_close_pairs > 0:
-            raise NotImplementedError(
-                "loop closure (loop_close_pairs > 0) is not ported yet (ROADMAP A12)")
-        if cfg.ba.refine_intrinsics or cfg.ba.refine_intrinsics_per_camera:
-            raise NotImplementedError(
-                "bundle adjustment of the intrinsics is not ported yet (ROADMAP A12)")
 
     def _maybe_ba(self, pstate: PipelineState, frame: int) -> PipelineState:
         # As in the JAX package, BaConfig's damping fields are not passed on:
@@ -329,7 +321,6 @@ class IncrementalSfM:
         detect every frame before the registration loop, in chunks of this
         size. Per-frame stats go to ``self.stats`` (and ``self.metrics``).
         """
-        self._check_supported()
         cfg = self.config
         dev = self.device
         K = torch.as_tensor(cfg.intrinsic_matrix(), device=dev)
@@ -355,9 +346,9 @@ class IncrementalSfM:
             return _undistort_features(f, K, cfg)
 
         # Per registered camera (rejected frames excluded): features and
-        # images for finalize's densification sweep, and feature-slot ->
-        # point-id track vectors, which finalize keeps remapped for loop
-        # closure (not ported yet, ROADMAP A12).
+        # images for finalize's loop closure and densification sweep, and
+        # feature-slot -> point-id track vectors, which finalize keeps
+        # remapped.
         self._cam_feats, self._cam_bgr, self._cam_gray, self._cam_tracks = [], [], [], []
         if cfg.bootstrap == "auto" and resume_state is None:
             if self.checkpoint_dir and self.checkpoint_every:
@@ -466,9 +457,15 @@ class IncrementalSfM:
 
     def finalize(self, cull_px: float = 4.0, compact: bool = True,
                  ba_iterations: int = 0) -> MapState:
-        """Final polish: capacity right-sizing, cull + global BA, then the
-        densification sweep (cfg.sweep.enabled). Updates and returns the map;
-        what it did goes to ``self.finalize_info``.
+        """Final polish, in the JAX package's order: capacity right-sizing;
+        loop closure (cfg.loop_close_pairs > 0: the full view graph over the
+        registered cameras, its strongest non-adjacent pairs, epipolar-
+        verified re-observations injected both ways); cull + global BA,
+        preceded by a robust BA and duplicate merging when loop closures
+        were injected; the densification sweep (cfg.sweep.enabled); and
+        last, BA of the intrinsics (cfg.ba.refine_intrinsics or
+        refine_intrinsics_per_camera). Updates and returns the map; what it
+        did goes to ``self.finalize_info``.
 
         compact: BA cost on the dense grid is capacity-proportional, so the
         map is compacted and shrunk to the smallest power of two (from 1024)
@@ -477,6 +474,7 @@ class IncrementalSfM:
         """
         if ba_iterations <= 0:
             ba_iterations = 20
+        cfg = self.config
         state = self.state.map
         if compact:
             state, remap = map_store.compact_points(state)
@@ -494,21 +492,91 @@ class IncrementalSfM:
 
             self._cam_tracks = [_remap(t) for t in self._cam_tracks]
             self.state = self.state._replace(map=state, prev_track=_remap(self.state.prev_track))
-        state, info = finalize_map(state, max_iterations=ba_iterations, cull_px=cull_px)
+
+        n_closed = 0
+        if cfg.loop_close_pairs > 0 and len(self._cam_tracks) == int(state.num_cams):
+            state, n_closed = self._close_loops(state)
+            self.state = self.state._replace(map=state)
+
+        # Loop closures can re-associate a landmark that exists as two track
+        # chains: merge duplicates within ~2 px at the median depth, once the
+        # robust phase has pulled them into agreement.
+        merge_eps = 0.0
+        if n_closed:
+            pose0 = state.poses[0]
+            z = state.points @ pose0[2, :3] + pose0[2, 3]
+            z_med = float(np.median(z[state.point_valid].cpu().numpy()))  # numpy's even-count mean
+            merge_eps = 2.0 * max(z_med, 1e-3) / float(state.K[0, 0])
+        state, info = finalize_map(
+            state, max_iterations=ba_iterations, cull_px=cull_px,
+            # Loop-closure observations may carry large (drift-revealing)
+            # errors: relax robustly before the cull can delete them.
+            robust_iterations=30 if n_closed else 0, merge_eps_3d=merge_eps)
+        if n_closed:
+            info["loop_closure_obs"] = n_closed
+        merge_remap = info.pop("point_remap", None)
+        if merge_remap is not None:
+            # Re-point the stored track ids at the merged survivors (they
+            # feed the sweep below and any resumed registration).
+            def _remap_merged(t):
+                safe = torch.clamp(t, 0, merge_remap.shape[0] - 1).long()
+                return torch.where(t >= 0, merge_remap[safe], torch.full_like(t, -1))
+
+            self._cam_tracks = [_remap_merged(t) for t in self._cam_tracks]
+            self.state = self.state._replace(prev_track=_remap_merged(self.state.prev_track))
+
         aligned = len(self._cam_feats) == int(state.num_cams)
-        if self.config.sweep.enabled and not aligned:
+        if cfg.sweep.enabled and not aligned:
             warnings.warn("densification sweep skipped: stored per-camera features "
                           "do not cover all registered cameras")
-        if self.config.sweep.enabled and aligned:
+        if cfg.sweep.enabled and aligned:
             state, sweep_info = densify.finalize_with_sweep(
-                state, self._cam_feats, self._cam_bgr, self.config,
+                state, self._cam_feats, self._cam_bgr, cfg,
                 cull_px=cull_px, images_gray=self._cam_gray)
             info.update(sweep_info)
+        if cfg.ba.refine_intrinsics or cfg.ba.refine_intrinsics_per_camera:
+            # Last, so that the recovered [s, k1, k2] describe the exported
+            # map (the sweep's pinhole solves would undo part of them).
+            if cfg.ba.refine_intrinsics_per_camera:
+                state, ba_stats, intr = ba_mod.bundle_adjust_map_percam_intrinsics(
+                    state, max_iterations=ba_iterations)
+                n = int(state.num_cams)
+                info["intrinsics_per_camera"] = [[float(v) for v in row]
+                                                 for row in intr[:n].cpu().numpy()]
+            else:
+                state, ba_stats, intr = ba_mod.bundle_adjust_map_intrinsics(
+                    state, max_iterations=ba_iterations)
+                info["intrinsics"] = [float(v) for v in intr.cpu().numpy()]
+            info["final_cost"] = float(ba_stats.final_cost)
         if self.metrics is not None:
             self.metrics.log(event="finalize", **info)
         self.finalize_info = info
         self.state = self.state._replace(map=state)
         return state
+
+    def _close_loops(self, state: MapState):
+        """Camera-aligned view graph (every pair) -> the strongest
+        non-adjacent pairs -> re-observations injected both ways, verified
+        by each pair's own E-RANSAC under the loose stitch gate (on a
+        drifted map the default map-agreement gate rejects exactly the
+        matches that reveal the drift). The RANSAC draws come from a
+        generator seeded with the camera count, so a resumed run replays
+        them. Returns (state, observations injected)."""
+        from sfm_mvs_tpu_torch.models import exhaustive
+
+        cfg = self.config
+        graph = exhaustive.build_view_graph(self._cam_gray, cfg, feats=self._cam_feats)
+        pairs = exhaustive.strongest_loop_pairs(graph, cfg.loop_close_pairs)
+        gen = torch.Generator(device=state.points.device)
+        gen.manual_seed(int(state.num_cams))
+        n_closed = 0
+        for i, j in pairs:
+            for a, b in ((i, j), (j, i)):
+                state, n = exhaustive.inject_reobservations(
+                    state, a, b, self._cam_feats[a], self._cam_feats[b], self._cam_tracks[a],
+                    cfg, gen=gen, max_err_px=cfg.map.stitch_gate_px, epipolar_verify=True)
+                n_closed += int(n)
+        return state, n_closed
 
     def _bgr(self, image) -> torch.Tensor:
         return torch.as_tensor(np.asarray(image, np.float32), device=self.device)

@@ -34,7 +34,16 @@ class MapState(NamedTuple):
 
 
 def init_map(K, cfg: MapConfig, device=None) -> MapState:
-    """Empty map with the configured capacities, on `device`."""
+    """Empty map with the configured capacities, every field on one device:
+    `device` if given, else K's when K is a tensor, else ``cuda`` (which
+    raises without CUDA; pass ``device="cpu"`` there)."""
+    if device is None:
+        if isinstance(K, torch.Tensor):
+            device = K.device
+        else:
+            from sfm_mvs_tpu_torch.models.incremental import resolve_device
+
+            device = resolve_device("cuda")
     P, C = cfg.max_points, cfg.max_cameras
     f32 = dict(dtype=torch.float32, device=device)
     return MapState(
@@ -224,3 +233,73 @@ def update_points(state: MapState, point_ids, X, valid) -> MapState:
 def update_poses(state: MapState, cam_ids, poses, valid) -> MapState:
     """Overwrite existing camera poses (BA write-back)."""
     return state._replace(poses=_set_rows(state.poses, cam_ids, poses, valid))
+
+
+def merge_duplicate_points(state: MapState, eps_3d, merge_px, block: int = 1024):
+    """Merge map points that describe the same landmark twice.
+
+    Loop closure can re-associate a landmark that already exists as two
+    independent track chains; the duplicate then double-counts its
+    evidence in BA. A pair (i, j < i) merges when (a) the 3D points lie
+    within `eps_3d`, (b) every camera observing both sees them within
+    `merge_px` pixels, (c) j is itself a merge root (no chains) and (d) i
+    is j's closest candidate (one winner per target, lowest index on exact
+    ties). Point i's observations fill the cameras where j has none; i is
+    invalidated. One pass merges pairs; call again for larger clusters.
+
+    The nearest lower-index neighbour is found in row blocks of `block`
+    points against the whole map (distances from one float32 product per
+    block). Returns (state, remap (P,) int64, remap[i] = the surviving id,
+    identity for unmerged points, and n_merged, a 0-dim tensor).
+    """
+    P = state.points.shape[0]
+    block = min(block, P)
+    pts, pv = state.points, state.point_valid
+    dev = pts.device
+    eps2 = torch.as_tensor(eps_3d, dtype=pts.dtype, device=dev) ** 2
+    idx_all = torch.arange(P, device=dev)
+    sq = (pts * pts).sum(1)
+    partner, pair_d2 = [], []
+    for i0 in range(0, P, block):
+        rows = pts[i0:i0 + block]
+        ri = idx_all[i0:i0 + block]
+        d2 = sq[i0:i0 + block, None] + sq[None, :] - (2.0 * rows) @ pts.T  # (block, P)
+        ok = pv[i0:i0 + block, None] & pv[None, :] & (idx_all[None, :] < ri[:, None])
+        d2 = torch.where(ok & (d2 < eps2), d2, torch.full_like(d2, float("inf")))
+        dmin, j = d2.min(dim=1)  # the first index on ties, as jnp.argmin
+        partner.append(torch.where(torch.isfinite(dmin), j, torch.full_like(j, -1)))
+        pair_d2.append(dmin)
+    partner = torch.cat(partner)
+    pair_d2 = torch.cat(pair_d2)
+
+    # (b) pixel-conflict test on the candidate pairs only: (P, C) work.
+    safe_j = torch.clamp(partner, 0, P - 1)
+    both = state.obs_mask & state.obs_mask[safe_j]
+    duv = torch.linalg.norm(state.obs_uv - state.obs_uv[safe_j], dim=-1)
+    conflict = (both & (duv > merge_px)).any(1)
+
+    # (c) the target must be a root; (d) one winner per target. The
+    # scatter-minimums write rejected rows to a spare slot P.
+    cand = (partner >= 0) & (partner[safe_j] < 0) & ~conflict
+    dest = torch.where(cand, partner, torch.full_like(partner, P))
+    best_at_j = torch.full((P + 1,), float("inf"), dtype=pts.dtype, device=dev)
+    best_at_j = best_at_j.scatter_reduce(0, dest, pair_d2, reduce="amin")
+    winner = cand & (pair_d2 <= best_at_j[safe_j])
+    dest = torch.where(winner, partner, torch.full_like(partner, P))
+    first_at_j = torch.full((P + 1,), P, dtype=idx_all.dtype, device=dev)
+    first_at_j = first_at_j.scatter_reduce(0, dest, idx_all, reduce="amin")
+    winner = winner & (idx_all == first_at_j[safe_j])
+
+    # Transfer observations i -> j where j lacks them; drop point i.
+    add_mask = _set_rows(torch.zeros_like(state.obs_mask), partner,
+                         state.obs_mask & winner[:, None], winner)
+    add_uv = _set_rows(torch.zeros_like(state.obs_uv), partner, state.obs_uv, winner)
+    new_mask = state.obs_mask | add_mask
+    new_uv = torch.where(state.obs_mask[..., None], state.obs_uv, add_uv)
+    cleared = winner[:, None]
+    state = state._replace(
+        point_valid=pv & ~winner,
+        obs_mask=new_mask & ~cleared,
+        obs_uv=torch.where(cleared[..., None], torch.zeros_like(new_uv), new_uv),
+    )
+    return state, torch.where(winner, partner, idx_all).to(torch.int32), winner.sum()

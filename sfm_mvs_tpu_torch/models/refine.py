@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from sfm_mvs_tpu_torch.models import ba as ba_mod
+from sfm_mvs_tpu_torch.models import map_store
 from sfm_mvs_tpu_torch.models.map_store import MapState
 
 
@@ -35,20 +36,27 @@ def finalize_map(state: MapState, max_iterations: int = 20, cull_px: float = 4.0
 
     robust_iterations > 0 first runs a Huber-robustified global BA before
     any cull, so that large-error long-range observations pull the
-    trajectory straight instead of being culled. Returns (MapState, info).
-    Duplicate-landmark merging (``merge_eps_3d > 0``) comes with loop
-    closure and is not ported yet.
+    trajectory straight instead of being culled. merge_eps_3d > 0 then
+    collapses duplicate landmarks (``map_store.merge_duplicate_points``,
+    two passes: pairs, then clusters) before the cull rounds; the composed
+    point-id remap goes to ``info["point_remap"]`` (callers holding track
+    ids re-point them at the survivors) and the count to
+    ``info["merged_points"]``. Returns (MapState, info).
     """
-    if merge_eps_3d > 0.0:
-        raise NotImplementedError(
-            "merging duplicate landmarks (merge_eps_3d > 0, loop closure) is not "
-            "ported yet (ROADMAP A12)")
     info = {}
     if robust_iterations > 0:
         state, stats = ba_mod.bundle_adjust_map(
             state, max_iterations=robust_iterations, cg_iters=cg_iters,
             huber_delta=robust_huber_px)
         info["robust_cost"] = float(stats.final_cost)
+    if merge_eps_3d > 0.0:
+        n_total, remap_total = 0, None
+        for _ in range(2):
+            state, remap, n = map_store.merge_duplicate_points(state, merge_eps_3d, merge_px)
+            n_total += int(n)
+            remap_total = remap if remap_total is None else remap[remap_total.long()]
+        info["merged_points"] = n_total
+        info["point_remap"] = remap_total
     for r in range(rounds):
         state = cull_map(state, max_error_px=cull_px)
         state, stats = ba_mod.bundle_adjust_map(

@@ -69,3 +69,10 @@ def transfer_error(H, pts1, pts2) -> torch.Tensor:
     den = h[..., 2:3]
     proj = h[..., :2] / torch.where(den.abs() < 1e-12, torch.full_like(den, 1e-12), den)
     return torch.linalg.norm(proj - pts2, dim=-1)
+
+
+def apply_homography(H: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Warp 2D points by H. (N, 2) -> (N, 2)."""
+    h = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=-1) @ H.T
+    w = h[:, 2:3]
+    return h[:, :2] / torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from sfm_mvs_tpu_torch.ops import epipolar, homography, masking, p3p, pnp
+from sfm_mvs_tpu_torch.ops import epipolar, five_point, homography, masking, p3p, pnp
 
 
 class RansacResult(NamedTuple):
@@ -43,29 +43,52 @@ def _sample_indices(gen: Optional[torch.Generator], iters: int, sample_size: int
 
 def ransac_essential(gen, norm0, norm1, mask, focal, threshold_px: float = 1.0,
                      iters: int = 2048, refit_rounds: int = 2, solver: str = "8pt",
-                     sample_idx: Optional[torch.Tensor] = None) -> RansacResult:
-    """Essential matrix via batched 8-point RANSAC.
+                     sample_idx: Optional[torch.Tensor] = None,
+                     sample_idx5: Optional[torch.Tensor] = None) -> RansacResult:
+    """Essential matrix via batched minimal-solver RANSAC.
 
     norm0, norm1: (N, 2) K^-1-normalized correspondences; mask: (N,) valid;
     focal: pixel focal used to express Sampson distance in ~pixels.
-    sample_idx: optional (iters, 8) indices into the compacted
-    correspondences, replacing the generator's draw.
+    solver: "8pt" (8-point + manifold projection; degenerate on planar
+    scenes), "5pt" (Nister, ops/five_point.py: up to 14 hypothesis slots
+    per sample, each with a validity flag) or "both" (8pt's `iters` samples
+    and 5pt's `iters // 4` scored as one pool; the inlier count picks the
+    family that fits). sample_idx: optional (iters, 8) indices into the
+    compacted correspondences for the 8-point draw, sample_idx5 the same
+    ((iters, 5) for "5pt", (iters // 4, 5) for "both") for the 5-point draw;
+    each replaces the generator's draw.
     """
-    if solver != "8pt":
-        raise NotImplementedError(
-            f"essential solver {solver!r}: the five-point solver is not ported "
-            "yet (ROADMAP A12, ops/five_point.py)")
+    if solver not in ("8pt", "5pt", "both"):
+        raise ValueError(f"unknown essential solver {solver!r}")
     N = norm0.shape[0]
     count, _, c0, c1 = masking.compact(mask, norm0, norm1)
-    if sample_idx is None:
-        sample_idx = _sample_indices(gen, iters, 8, count, N)
-    sample_idx = sample_idx.long()
-    Es = epipolar.essential_eight_point(c0[sample_idx], c1[sample_idx])  # (S, 3, 3)
+    Es, hyp_valid = [], []
+    if solver in ("8pt", "both"):
+        if sample_idx is None:
+            sample_idx = _sample_indices(gen, iters, 8, count, N)
+        idx8 = sample_idx.long()
+        Es.append(epipolar.essential_eight_point(c0[idx8], c1[idx8]))  # (S, 3, 3)
+        hyp_valid.append(torch.ones(idx8.shape[0], dtype=torch.bool, device=norm0.device))
+    if solver in ("5pt", "both"):
+        if sample_idx5 is None:
+            n5 = iters if solver == "5pt" else max(iters // 4, 1)
+            sample_idx5 = _sample_indices(gen, n5, 5, count, N)
+        idx5 = sample_idx5.long()
+        E5, v5 = five_point.essential_five_point(c0[idx5], c1[idx5])  # (S, 14, 3, 3)
+        Es.append(E5.reshape(-1, 3, 3))
+        hyp_valid.append(v5.reshape(-1))
+    Es = torch.cat(Es)
+    hyp_valid = torch.cat(hyp_valid)
     residuals = epipolar.epipolar_residual_pixels(Es, norm0, norm1, focal)
     inl = (residuals < threshold_px) & mask[None, :]
-    best = torch.argmax(inl.sum(1))
+    counts = inl.sum(1)
+    counts = torch.where(hyp_valid, counts, torch.full_like(counts, -1))
+    best = torch.argmax(counts)
     E = Es[best]
-    inliers = inl[best]
+    # If every hypothesis was invalid (possible with the gated 5-point
+    # solver), the argmax is arbitrary: report no inliers, so the callers'
+    # rejection guards trigger, and let no refit start from the empty set.
+    inliers = inl[best] & (counts[best] >= 0)
 
     # Inlier-weighted refits, accepted only on a strict inlier gain (a tie
     # must keep the minimal-solver E: the 8-point refit is degenerate on
@@ -74,7 +97,9 @@ def ransac_essential(gen, norm0, norm1, mask, focal, threshold_px: float = 1.0,
         E2 = epipolar.essential_eight_point(norm0, norm1, inliers.to(norm0.dtype))
         res2 = epipolar.epipolar_residual_pixels(E2, norm0, norm1, focal)
         inl2 = (res2 < threshold_px) & mask
-        better = inl2.sum() > inliers.sum()
+        # An empty inlier set weights every row 0: XLA's SVD of the zero
+        # matrix is NaN there, so the JAX refit never wins; torch's is not.
+        better = (inl2.sum() > inliers.sum()) & inliers.any()
         E = torch.where(better, E2, E)
         inliers = torch.where(better, inl2, inliers)
     return RansacResult(E, inliers, inliers.sum())

@@ -1,14 +1,15 @@
 """SIFT-style feature detection and description.
 
-PyTorch port of ``sfm_mvs_tpu/ops/sift.py:detect_and_compute`` on its
-default path: ``upsample_input=True`` and ``grad_sampling="nearest_polar"``,
-with orientation and descriptor computation deferred to the global top-K
-winners. Per octave: Gaussian scale space and DoG (ops/pyramid.py), strict
-26-neighbour extrema, a closed-form (adjugate) subpixel solve with
-contrast and edge rejection, and a per-octave top-K. Then a two-stage
-global top-K: winners by response, their orientations (secondary peaks
-re-enter as duplicates), a second top-K, and the 4x4x8 descriptors sampled
-once for the final K from the bf16-quantized polar gradient maps.
+PyTorch port of ``sfm_mvs_tpu/ops/sift.py:detect_and_compute``. Per
+octave: Gaussian scale space and DoG (ops/pyramid.py), strict 26-neighbour
+extrema, a closed-form (adjugate) subpixel solve with contrast and edge
+rejection, and a per-octave top-K. On the default
+``grad_sampling="nearest_polar"`` path a two-stage global top-K follows:
+winners by response, their orientations (secondary peaks re-enter as
+duplicates), a second top-K, and the 4x4x8 descriptors sampled once for
+the final K from the bf16-quantized polar gradient maps. With
+``"bilinear"`` every octave candidate samples interpolated (dx, dy) maps
+for its orientations and two descriptors, and one global top-K follows.
 
 Selection uses the exact ``torch.topk`` where the JAX package may use
 ``lax.approx_max_k`` (``approx_topk``); JAX computes the exact top-k on CPU
@@ -135,6 +136,44 @@ def _octave_candidates(dog: torch.Tensor, cfg: FrontendConfig):
 _ORI_GRID = 16  # orientation window sample grid (16x16)
 _ORI_BINS = 36
 _DESC_GRID = 16  # descriptor sample grid (16x16 samples over 4x4 bins)
+
+
+def _bilinear_gather(maps: torch.Tensor, layer: torch.Tensor, x: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+    """Sample maps (C, L, H, W) at (layer, y, x), bilinearly in (y, x).
+
+    layer: (...) integer; x, y: (...) float, clamped into the map. Returns
+    (C, ...) samples: four per-corner element gathers. A NaN coordinate
+    (only candidates that are invalid anyway carry one) reads a clamped
+    index, as XLA's gather clamps.
+    """
+    C, L, H, W = maps.shape
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = x - x0
+    fy = y - y0
+    flat = maps.reshape(C, L * H * W)
+
+    def at(yy, xx):
+        idx = torch.clamp((layer * H + yy) * W + xx, 0, L * H * W - 1)
+        return flat[:, idx.reshape(-1)].reshape((C,) + yy.shape)
+
+    return (at(y0, x0) * (1 - fy) * (1 - fx) + at(y0, x0 + 1) * (1 - fy) * fx
+            + at(y0 + 1, x0) * fy * (1 - fx) + at(y0 + 1, x0 + 1) * fy * fx)
+
+
+def _bilinear_sampler(grads: torch.Tensor, layer: torch.Tensor):
+    """sample(sx, sy) -> (mag, ang) of the (dx, dy) maps (2, L, H, W)
+    interpolated bilinearly at layer[k] for every window position of
+    keypoint k (the JAX package's ``grad_sampling="bilinear"``)."""
+
+    def sample(sx, sy):
+        dx, dy = _bilinear_gather(grads, layer[:, None].expand_as(sx), sx, sy)
+        return torch.sqrt(dx * dx + dy * dy), torch.remainder(torch.atan2(dy, dx), _TWO_PI)
+
+    return sample
 
 
 def _polar_planes(grads_dx: torch.Tensor, grads_dy: torch.Tensor):
@@ -282,11 +321,16 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
 
     image: (H, W) float32 grayscale in [0, 1] on any device. Returns
     fixed-capacity Features (cfg.max_features slots) in input-image pixels.
+
+    With ``grad_sampling="nearest_polar"`` orientation and descriptors are
+    deferred to the global top-K winners and read the bf16 polar maps; with
+    ``"bilinear"`` every octave candidate gets its orientations and both
+    descriptors from bilinearly interpolated (dx, dy) maps, and one global
+    top-K over all octaves' primary and secondary entries picks the result.
     """
-    if cfg.grad_sampling != "nearest_polar":
-        raise NotImplementedError(
-            f"grad_sampling={cfg.grad_sampling!r}: only 'nearest_polar' is "
-            "ported; 'bilinear' waits (ROADMAP A12)")
+    if cfg.grad_sampling not in ("nearest_polar", "bilinear"):
+        raise ValueError(f"unknown grad_sampling {cfg.grad_sampling!r}")
+    deferred = cfg.grad_sampling == "nearest_polar"
     dev = image.device
     S = cfg.scales_per_octave
     base = pyramid.upsample2(image) if cfg.upsample_input else image
@@ -297,6 +341,7 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
     metas = []  # per-octave candidate attributes
     mag_parts, ang_parts = [], []  # flattened per-octave polar maps
     geoms = []  # (h, w) per octave
+    per_octave = []  # bilinear path: (primary, secondary) Features per octave
     cur = base
     for o in range(cfg.num_octaves):
         blur_in = assumed if o == 0 else cfg.sigma0
@@ -309,10 +354,11 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
         pad = _pad_edge(gauss[1:S + 1])
         gdx = 0.5 * (pad[:, 1:-1, 2:] - pad[:, 1:-1, :-2])
         gdy = 0.5 * (pad[:, 2:, 1:-1] - pad[:, :-2, 1:-1])
-        mag, ang = _polar_planes(gdx, gdy)
-        mag_parts.append(mag.reshape(-1))
-        ang_parts.append(ang.reshape(-1))
-        geoms.append((h, w))
+        if deferred:
+            mag, ang = _polar_planes(gdx, gdy)
+            mag_parts.append(mag.reshape(-1))
+            ang_parts.append(ang.reshape(-1))
+            geoms.append((h, w))
 
         top_resp, top_idx = torch.topk(response.reshape(-1), budgets[o])
         lay = top_idx // (h * w)
@@ -326,14 +372,38 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
         desc_rad = 3.0 * sigma_oct * (cfg.descriptor_width / 2.0) * math.sqrt(2.0)
         inside = (fx > desc_rad) & (fx < w - 1 - desc_rad) & (fy > desc_rad) & (fy < h - 1 - desc_rad)
         valid = (top_resp > 0.0) & inside
-        metas.append(dict(
-            oct=torch.full(lay.shape, o, dtype=torch.int64, device=dev), lay=lay,
-            fx=fx, fy=fy, sigma=sigma_oct, valid=valid,
-            response=torch.where(valid, top_resp, torch.zeros_like(top_resp)),
-        ))
+        zero = torch.zeros_like(top_resp)
+        if deferred:
+            metas.append(dict(
+                oct=torch.full(lay.shape, o, dtype=torch.int64, device=dev), lay=lay,
+                fx=fx, fy=fy, sigma=sigma_oct, valid=valid,
+                response=torch.where(valid, top_resp, zero),
+            ))
+        else:
+            sample = _bilinear_sampler(torch.stack([gdx, gdy]), lay)
+            ang1, ang2, has2 = _orientation(sample, fx, fy, sigma_oct)
+            valid2 = valid & has2  # secondary-orientation duplicates
+            stoi = first_scale * (2.0 ** o)
+            xy = torch.stack([fx, fy], dim=-1) * stoi
+            sc = sigma_oct * stoi
+            per_octave.append(Features(
+                xy=xy, scale=sc, angle=ang1, response=torch.where(valid, top_resp, zero),
+                desc=_descriptor(sample, fx, fy, sigma_oct, ang1, cfg), valid=valid))
+            # Down-weighted infinitesimally, so primaries win top-K ties.
+            per_octave.append(Features(
+                xy=xy, scale=sc, angle=ang2,
+                response=torch.where(valid2, top_resp * 0.999999, zero),
+                desc=_descriptor(sample, fx, fy, sigma_oct, ang2, cfg), valid=valid2))
         cur = pyramid.subsample2(gauss[S])
 
     Kf = cfg.max_features
+    if not deferred:
+        # One global top-K over every octave's primary and secondary entries.
+        allf = Features(*[torch.cat(col, dim=0) for col in zip(*per_octave)])
+        top_resp, order = torch.topk(allf.response, Kf)
+        return Features(xy=allf.xy[order], scale=allf.scale[order], angle=allf.angle[order],
+                        response=top_resp, desc=allf.desc[order],
+                        valid=allf.valid[order] & (top_resp > 0.0))
 
     def cat(k):
         return torch.cat([m[k] for m in metas], dim=0)

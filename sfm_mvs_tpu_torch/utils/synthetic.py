@@ -1,9 +1,10 @@
-"""Synthetic staircase scenes for tests and the smoke run.
+"""Synthetic staircase and plane scenes for tests and the smoke run.
 
-The part of ``sfm_mvs_tpu/utils/synthetic.py`` that the port's main path
-uses, copied unchanged (numpy only): :func:`render_staircase_sequence` and
-the helpers it calls. Both packages render bitwise-identical images from the
-same arguments.
+The part of ``sfm_mvs_tpu/utils/synthetic.py`` that the port's paths use,
+copied unchanged (numpy only): :func:`render_staircase_sequence`,
+:func:`render_plane_sequence` (the global pipeline's scene) and the helpers
+they call. Both packages render bitwise-identical images from the same
+arguments.
 """
 
 from __future__ import annotations
@@ -162,3 +163,66 @@ def render_staircase_sequence(
     if return_depth:
         return images, np.stack(Rts).astype(np.float32), K, depth_maps
     return images, np.stack(Rts).astype(np.float32), K
+
+
+def render_plane_sequence(
+    num_cameras: int = 8,
+    image_size=(320, 240),
+    focal: float = 400.0,
+    plane_size: float = 4.0,
+    radius: float = 6.0,
+    arc_degrees: float = 60.0,
+    texture_size: int = 1024,
+    seed: int = 0,
+):
+    """Render a textured 3D plane (z=0, |x|,|y|<=s/2) from a camera ring.
+
+    Returns (images: list[(H,W) float32 in [0,1]], Rt: (C,3,4), K: (3,3)).
+    Rendering is exact inverse-homography bilinear sampling, so SIFT-style
+    features are realistically detectable and matchable across views and the
+    recovered geometry can be compared to the ground-truth poses.
+    """
+    tex = make_texture(texture_size, seed=seed)
+    W, H = image_size
+    K = np.array(
+        [[focal, 0.0, W / 2.0], [0.0, focal, H / 2.0], [0.0, 0.0, 1.0]],
+        dtype=np.float32,
+    )
+    angles = np.deg2rad(np.linspace(0.0, arc_degrees, num_cameras))
+    Rts, images = [], []
+    # Plane param: world (x, y, 0) with x,y in [-s/2, s/2] -> texture coords.
+    s = plane_size
+    for a in angles:
+        eye = np.array([radius * np.sin(a), 0.2 * np.sin(3 * a), -radius * np.cos(a)])
+        Rt = look_at(eye, np.zeros(3))
+        Rts.append(Rt)
+        # Homography from image pixels to plane coords: for plane z=0,
+        # x_img ~ K [r1 r2 t] [X Y 1]^T  =>  plane->image H, invert.
+        Hpi = K @ np.stack([Rt[:, 0], Rt[:, 1], Rt[:, 3]], axis=1)
+        Hip = np.linalg.inv(Hpi)
+        u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+        ones = np.ones_like(u)
+        pix = np.stack([u, v, ones], axis=-1) @ Hip.T
+        X = pix[..., 0] / pix[..., 2]
+        Y = pix[..., 1] / pix[..., 2]
+        # plane coords -> texture pixel coords
+        tu = (X / s + 0.5) * (texture_size - 1)
+        tv = (Y / s + 0.5) * (texture_size - 1)
+        inside = (tu >= 0) & (tu <= texture_size - 1) & (tv >= 0) & (tv <= texture_size - 1)
+        tu = np.clip(tu, 0, texture_size - 1)
+        tv = np.clip(tv, 0, texture_size - 1)
+        i0 = np.floor(tv).astype(int)
+        j0 = np.floor(tu).astype(int)
+        i1 = np.minimum(i0 + 1, texture_size - 1)
+        j1 = np.minimum(j0 + 1, texture_size - 1)
+        fi = (tv - i0).astype(np.float32)
+        fj = (tu - j0).astype(np.float32)
+        img = (
+            tex[i0, j0] * (1 - fi) * (1 - fj)
+            + tex[i0, j1] * (1 - fi) * fj
+            + tex[i1, j0] * fi * (1 - fj)
+            + tex[i1, j1] * fi * fj
+        )
+        img = np.where(inside, img, 0.12).astype(np.float32)
+        images.append(img)
+    return images, np.stack(Rts), K

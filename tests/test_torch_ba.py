@@ -75,7 +75,8 @@ def test_lm_solve_step(noisy):
     js, ts = noisy
     solve = jax.jit(jba._lm_solve, static_argnames=("cg_iters",))
     dc, dp, _ = solve(jba.problem_from_map(js), jnp.float32(1e-3), cg_iters=20)
-    tdc, tdp = ba._lm_solve(ba.problem_from_map(ts), torch.tensor(1e-3), 20)
+    tdc, tdp, tdt = ba._lm_solve(ba.problem_from_map(ts), torch.tensor(1e-3), 20)
+    np.testing.assert_array_equal(N(tdt), 0.0)  # the intrinsics stay put
     assert np.abs(N(dc)).max() > 1e-2
     np.testing.assert_allclose(N(tdc), N(dc), rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose(N(tdp), N(dp), rtol=1e-3, atol=1e-5)

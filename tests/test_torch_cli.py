@@ -5,8 +5,11 @@ MVS densification and checkpoints, once with the sequential bootstrap and
 once with the view-graph one: it must return 0, write every artifact the
 JAX package's CLI writes, log the metrics events, and leave a pose.csv of
 9 + 12 values per camera whose trajectory is within ATE 0.05 of ground
-truth. Flags of features the port has not ported yet raise
-NotImplementedError naming ROADMAP A12; --device cuda without CUDA raises.
+truth. The remaining flags run too: --pipeline global (rc 0, a finite
+pose.csv), and --essential-solver 5pt --grad-sampling bilinear
+--loop-close 2 --ba-refine-intrinsics-per-camera (ATE < 0.05, loop-closure
+observations, camera 0's intrinsics the identity). --device cuda without
+CUDA raises.
 """
 
 import importlib.util
@@ -83,17 +86,44 @@ def test_cli_end_to_end(frames, tmp_path, bootstrap):
     assert len(sparse) > 100 and len(dense) > 1000 and np.isfinite(dense).all()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--pipeline", "global"],
-    ["--loop-close", "2"],
-    ["--ba-refine-intrinsics"],
-    ["--ba-refine-intrinsics-per-camera"],
-    ["--essential-solver", "5pt"],
-    ["--grad-sampling", "bilinear"],
-], ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_raise(frames, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A12"):
-        cli.main(_args(frames, tmp_path / "out", *flags))
+def _poses(out):
+    assert len(np.loadtxt(out / "pose.csv")) == 9 + 12 * N_FRAMES
+    K, P = io.load_pose_csv(str(out / "pose.csv"))
+    return io.poses_from_projections(K, P).astype(np.float32)
+
+
+def test_cli_global_pipeline(frames, tmp_path, capsys):
+    """--pipeline global: tracks, global BA and the final sweep, then
+    --finalize's cull + BA; the incremental-only --loop-close is ignored
+    with a warning."""
+    out = tmp_path / "out"
+    rc = cli.main(_args(frames, out, "--pipeline", "global", "--finalize", "--loop-close", "2",
+                        "--no-gif"))
+    assert rc == 0
+    assert "ignored with --pipeline global" in capsys.readouterr().err
+    poses = _poses(out)
+    assert np.isfinite(poses).all()
+    with open(out / "metrics.jsonl") as fh:
+        assert not [json.loads(line) for line in fh]  # the global driver logs no events
+    sparse, _ = io.read_ply(str(out / "sparse.ply"))
+    assert len(sparse) > 100
+
+
+def test_cli_five_point_bilinear_loop_closure_percam(frames, tmp_path):
+    """The incremental path with every remaining flag: the 5-point solver,
+    bilinear SIFT sampling, loop closure and per-camera intrinsics."""
+    out = tmp_path / "out"
+    rc = cli.main(_args(frames, out, "--essential-solver", "5pt", "--grad-sampling", "bilinear",
+                        "--loop-close", "2", "--ba", "--ba-refine-intrinsics-per-camera",
+                        "--no-gif"))
+    assert rc == 0
+    assert evaluate.ate_rmse(_poses(out), frames[1]) < 0.05
+    with open(out / "metrics.jsonl") as fh:
+        fin = [r for r in map(json.loads, fh) if r["event"] == "finalize"][0]
+    assert fin["loop_closure_obs"] > 0 and "merged_points" in fin and "robust_cost" in fin
+    intr = np.asarray(fin["intrinsics_per_camera"])
+    assert intr.shape == (N_FRAMES, 3) and intr[0].tolist() == [1.0, 0.0, 0.0]
+    assert fin["final_cost"] < 1.0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="CUDA is available here")

@@ -1,9 +1,11 @@
 """The port's Python API runs on the card unless the caller asks for the CPU.
 
-``IncrementalSfM``, ``build_view_graph`` (when it detects features itself)
-and the checkpoint loaders default to ``device="cuda"``. Where CUDA is
-absent they raise a RuntimeError that names ``device="cpu"``; nothing falls
-back to the CPU silently. Each test decides at run time whether the
+``IncrementalSfM``, ``GlobalSfM``, ``build_view_graph`` (when it detects
+features itself), ``redetect_for_sweep`` (for numpy frames without K),
+``map_store.init_map`` (for a K that is not a tensor) and the checkpoint
+loaders default to ``device="cuda"``. Where CUDA is absent they raise a
+RuntimeError that names ``device="cpu"``; nothing falls back to the CPU
+silently. ``init_map`` keeps every field on a tensor K's device. Each test decides at run time whether the
 machine has a GPU (and skips there: the defaults then just work).
 """
 
@@ -11,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from sfm_mvs_tpu_torch.models import exhaustive, map_store
+from sfm_mvs_tpu_torch.models import densify, exhaustive, map_store
 from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM, PipelineState, resolve_device
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.utils import checkpoint
@@ -27,7 +29,8 @@ def _skip_with_cuda():
 
 def _tiny_checkpoint(path):
     state = map_store.init_map(np.eye(3, dtype=np.float32), MapConfig(max_cameras=4,
-                                                                      max_points=8))
+                                                                      max_points=8),
+                               device="cpu")
     n = 16
     feats = Features(xy=torch.zeros((n, 2)), scale=torch.ones(n), angle=torch.zeros(n),
                      response=torch.zeros(n), desc=torch.zeros((n, 128)),
@@ -70,3 +73,38 @@ def test_checkpoint_loaders_default_to_cuda(tmp_path):
 @pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
 def test_resolve_device_keeps_the_cpu(device):
     assert resolve_device(device) == torch.device("cpu")
+
+
+def test_global_sfm_defaults_to_cuda():
+    from sfm_mvs_tpu_torch.models.tracks import GlobalSfM
+
+    _skip_with_cuda()
+    with pytest.raises(RuntimeError, match=NAMES_CPU):
+        GlobalSfM(SfmConfig())
+    assert GlobalSfM(SfmConfig(), device="cpu").device == torch.device("cpu")
+
+
+def test_redetect_for_sweep_defaults_to_cuda():
+    _skip_with_cuda()
+    cfg = SfmConfig()
+    g = np.random.default_rng(0).random((48, 64)).astype(np.float32)
+    with pytest.raises(RuntimeError, match=NAMES_CPU):
+        densify.redetect_for_sweep([g], cfg)
+    f, = densify.redetect_for_sweep([g], cfg, device="cpu")
+    assert f.xy.device.type == "cpu"
+    # A tensor frame is detected where it lies; numpy frames follow K.
+    f, = densify.redetect_for_sweep([torch.as_tensor(g)], cfg)
+    assert f.xy.device.type == "cpu"
+    f, = densify.redetect_for_sweep([g], cfg, K=torch.eye(3))
+    assert f.desc.device.type == "cpu"
+
+
+def test_init_map_follows_k_or_defaults_to_cuda():
+    cfg = MapConfig(max_cameras=4, max_points=8)
+    state = map_store.init_map(torch.eye(3), cfg)
+    assert {t.device.type for t in state} == {"cpu"}
+    state = map_store.init_map(torch.eye(3), cfg, device="cpu")
+    assert {t.device.type for t in state} == {"cpu"}
+    _skip_with_cuda()
+    with pytest.raises(RuntimeError, match=NAMES_CPU):
+        map_store.init_map(np.eye(3, dtype=np.float32), cfg)

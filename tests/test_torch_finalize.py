@@ -200,6 +200,6 @@ def test_densify_sweep_dedups_a_second_pass():
     fc = densify.sweep_frontend_config(sw)
     assert (fc.max_features, fc.contrast_threshold) == (64, 0.01)
     g = np.random.default_rng(0).random((64, 96)).astype(np.float32)
-    f, = densify.redetect_for_sweep([g], sw)
+    f, = densify.redetect_for_sweep([g], sw, device="cpu")
     np.testing.assert_array_equal(N(f.xy), N(sift.detect_and_compute(T(g), fc).xy))
     assert f.xy.shape == (64, 2)

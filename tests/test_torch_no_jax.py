@@ -2,8 +2,9 @@
 
 In a fresh interpreter with ``jax`` and ``sfm_mvs_tpu`` blocked from import,
 every module of ``sfm_mvs_tpu_torch`` imports (the CLI, the native loader,
-MVS and the view graph among them), the CLI's parser takes the flags the
-GPU smoke run gives it, and a small detect + match runs on the CPU.
+MVS, the view graph, the five-point solver and the global pipeline among
+them), the CLI's parser takes the flags the GPU smoke run gives it, and a
+small detect + match runs on the CPU.
 """
 
 import os
@@ -24,7 +25,8 @@ SCRIPT = textwrap.dedent("""
                                                    "sfm_mvs_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    for name in ("cli", "native", "models.mvs", "models.exhaustive"):
+    for name in ("cli", "native", "models.mvs", "models.exhaustive", "ops.five_point",
+                 "models.tracks"):
         assert "sfm_mvs_tpu_torch." + name in names
     from sfm_mvs_tpu_torch import cli
     args = cli.build_parser().parse_args([
@@ -33,10 +35,15 @@ SCRIPT = textwrap.dedent("""
         "--lowe-ratio", "0.75", "--contrast-threshold", "0.012", "--max-cameras", "64",
         "--max-points", "16384", "--bootstrap", "auto", "--ba", "--ba-iterations", "8",
         "--finalize", "--sweep", "--sweep-contrast", "0.0025", "--densify", "--no-gif",
-        "--device", "cuda"])
+        "--device", "cuda", "--essential-solver", "5pt", "--grad-sampling", "bilinear",
+        "--loop-close", "4", "--ba-refine-intrinsics", "--ba-refine-intrinsics-per-camera",
+        "--pipeline", "global"])
     cfg = cli.config_from_args(args)
     assert (cfg.bootstrap, cfg.ba.enabled, cfg.sweep.enabled, args.densify, args.device) == (
         "auto", True, True, True, "cuda")
+    assert (cfg.ransac.essential_solver, cfg.frontend.grad_sampling, cfg.loop_close_pairs,
+            cfg.ba.refine_intrinsics, cfg.ba.refine_intrinsics_per_camera, args.pipeline) == (
+        "5pt", "bilinear", 4, True, True, "global")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     from sfm_mvs_tpu_torch.ops import matching, sift
@@ -58,5 +65,5 @@ def test_port_imports_and_runs_without_jax():
                          env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, n_kp, n_matches = map(int, out.stdout.split())
-    assert n_modules >= 36
+    assert n_modules >= 38
     assert n_kp > 20 and n_matches > 10

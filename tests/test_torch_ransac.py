@@ -75,15 +75,3 @@ def test_ransac_homography(rng):
     np.testing.assert_array_equal(N(ours.inliers), N(ref.inliers))
     assert int(ours.num_inliers) == int(ref.num_inliers) > 80
     assert_close(ours.model, ref.model, rtol=1e-4, atol=1e-4)
-
-
-def test_ransac_essential_rejects_unported_solvers(rng):
-    n = T(rng.normal(size=(16, 2)).astype(np.float32))
-    m = T(np.ones(16, bool))
-    for solver in ("5pt", "both"):
-        try:
-            ransac.ransac_essential(None, n, n, m, T(np.float32(1.0)), solver=solver)
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e)
-        else:
-            raise AssertionError(f"solver {solver} should raise")

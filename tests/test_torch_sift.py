@@ -100,9 +100,3 @@ def test_output_contract(detections):
     assert ours.valid.dtype == torch.bool and ours.xy.dtype == torch.float32
     desc = N(ours.desc)[N(ours.valid)]
     np.testing.assert_allclose(np.linalg.norm(desc, axis=1), 1.0, atol=1e-4)
-
-
-def test_bilinear_sampling_not_ported(frame):
-    cfg = FrontendConfig(max_features=64, num_octaves=2, grad_sampling="bilinear")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sift.detect_and_compute(T(frame), cfg)

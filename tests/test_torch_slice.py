@@ -141,16 +141,3 @@ def test_ba_and_finalize_both_packages(scene):
         results.append(n_points)
     n_jax, n_port = results
     assert abs(n_port - n_jax) <= 0.1 * n_jax
-
-
-def test_unported_options_raise(scene):
-    imgs, _, _, cfg, _ = scene
-
-    # bootstrap="auto" and checkpoints are ported (test_torch_auto_bootstrap.py,
-    # test_torch_checkpoint.py); loop closure and BA of the intrinsics wait.
-    for bad in (dataclasses.replace(cfg, loop_close_pairs=2),
-                dataclasses.replace(cfg, ba=config.BaConfig(enabled=True, refine_intrinsics=True)),
-                dataclasses.replace(cfg, ba=config.BaConfig(
-                    enabled=True, refine_intrinsics_per_camera=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            incremental.IncrementalSfM(bad, device="cpu").run(imgs)
