@@ -67,10 +67,30 @@ Phases, each printing one line (any failure exits non-zero):
     global BA cost < 4 px^2), ``final_sweep`` (the map grows), then the
     CLI with ``--pipeline global --finalize`` (rc 0, 11 poses); K1
     launches = 2 x (10 pairs + 10 swept pairs).
-13. the last line: {"ok": true, "device": {...}}.
+13. KLT: ``KltSfM(cfg, redetect_every=5, device="cuda")`` on phase 4's
+    frames and config (tracking, PnP, triangulation, replenishment); gates
+    are tests/test_klt_pipeline.py's bounds where the JAX package's record on
+    the same frames meets them, else no worse than that record by more than
+    20%; 1 K1 launch (the bootstrap).
+14. split-phase stitching at benchmarks/large_scene.py's width: 250 frames
+    at 480x360 over 145 degrees registered by ``IncrementalSfM`` with
+    windowed BA, then ``covisibility_matrix``, ``retrieve_stitch_pairs``,
+    chunks of 32 pairs through ``stitch_candidates_batch`` (K1 per live pair,
+    one batched E-RANSAC) and ``apply_stitch_batch`` both ways, then the
+    finalize (compact, shrink, 2 robust BA rounds each followed by a
+    re-apply of every candidate, ``finalize_map``); checks 250/250, ATE <
+    0.05, injections > 0, a re-apply that injects nothing, a final cost
+    below 1 px^2, and K1 launches = 249 + the live pairs.
+15. the last line: {"ok": true, "device": {...}}.
 
-``--profile`` adds, after phase 9, torch.profiler over one
-``mvs._plane_sweep_batch`` call of 4 reference frames.
+The scenes of phases 11 and 14 are rendered on the host by one spawned
+worker process, started after the build, while phases 3-10 drive the card.
+
+``--profile`` adds, after phase 14, bench.py's stage breakdown with
+torch.profiler over two warm frames and one LM iteration, torch.profiler
+over one ``mvs._plane_sweep_batch`` call of 4 reference frames, and a KLT
+frame's stage breakdown with torch.profiler over one warm ``klt_step``
+(tables in chiprun_out/profile.txt).
 
     python3 chip_smoke.py --microbench  # only the card's limits behind K1
 
@@ -940,7 +960,7 @@ def phase_loop_cli(Rt_gt):
 DIST = (-0.18, 0.03)
 
 
-def phase_intrinsics(cfg):
+def phase_intrinsics(cfg, renders):
     """Phase 11: the staircase rendered with radial distortion (k1, k2) =
     (-0.18, 0.03), reconstructed by a driver unaware of it (BA off), then
     the shared-intrinsics BA (the full-size twin of
@@ -948,11 +968,8 @@ def phase_intrinsics(cfg):
     from sfm_mvs_tpu_torch.models import ba
     from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
     from sfm_mvs_tpu_torch.ops import matching_cuda
-    from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
 
-    t0 = time.time()
-    imgs, Rt_gt, _ = render_staircase_sequence(**SCENE, dist=DIST)
-    render_s = time.time() - t0
+    (imgs, Rt_gt, _), render_s = renders.get("distorted")
     # BA off, as in the test this mirrors: a per-frame pinhole BA absorbs
     # most of the distortion into the structure first (PERF.md, section 4).
     sfm = IncrementalSfM(cfg, device=DEVICE)
@@ -974,7 +991,7 @@ def phase_intrinsics(cfg):
     torch.cuda.synchronize()
     percam_s = time.perf_counter() - t0
     rows = pc[:n_cams].cpu().numpy()
-    log(f"[intr] distorted render {render_s:.1f} s; run, BA off (k1 = k2 = 0 assumed): cameras "
+    log(f"[intr] distorted render waited {render_s:.1f} s; run, BA off (k1 = k2 = 0 assumed): cameras "
         f"{n_cams}/{len(imgs)} ATE {ate0:.6f} in {run_s:.1f} s; K1 launches {launches} "
         f"(expected {len(imgs) - 1})")
     log(f"[intr] shared [s, k1, k2] = [{s:.5f}, {k1:.5f}, {k2:.5f}] (true k1, k2 = {DIST}); cost "
@@ -1068,6 +1085,234 @@ def phase_global(cfg):
     if launches != expected:
         raise AssertionError(f"K1 launched {launches} times, expected {expected}")
     return launches
+
+
+# The JAX package's KltSfM on phase 4's frames and config (redetect_every=5),
+# on a CPU (``scripts/torch_port_records.py klt``): its LK conditioning gate
+# (min eigenvalue 1e-4 per pixel) keeps 4 of frame 1's 424 features at
+# 968x648, so it registers 2/57 (ROADMAP C4).
+KLT_RECORD = dict(cameras=2, points=335, ate=4.77093641854673e-07, rot=0.0, tracked_min=0,
+                  pnp_min=0, reproj_max=1.8561153411865234)
+# tests/test_klt_pipeline.py's bounds: (record key, bound, higher is better)
+KLT_BOUNDS = dict(cameras=(57, True), ate=(0.06, False), rot=(1.5, False),
+                  tracked_min=(80, True), pnp_min=(30, True), reproj_max=(1.0, False))
+
+
+def _klt_gate(key, value):
+    """(passes, gate text): the test's bound where the JAX record meets it,
+    else no worse than the record by more than 20%."""
+    bound, higher = KLT_BOUNDS[key]
+    rec = KLT_RECORD[key]
+    if (rec > bound) if higher else (rec < bound):
+        return ((value > bound) if higher else (value < bound)), f"{'>' if higher else '<'} {bound}"
+    lim = 0.8 * rec if higher else 1.2 * rec
+    return ((value >= lim) if higher else (value <= lim)), (
+        f"{'>=' if higher else '<='} {lim:.6g} (JAX record {rec:.6g} misses {bound})")
+
+
+def phase_klt(imgs, Rt_gt, cfg):
+    """Phase 13: ``KltSfM(cfg, redetect_every=5, device="cuda")`` on phase
+    4's frames; gates from tests/test_klt_pipeline.py and the JAX record."""
+    from sfm_mvs_tpu_torch.models.klt import KltSfM
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.utils import evaluate
+
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    k = KltSfM(cfg, redetect_every=5, device=DEVICE)
+    state = k.run(imgs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = matching_cuda.launches
+    cv = state.cam_valid.cpu().numpy()
+    poses = state.poses.cpu().numpy()[cv]
+    n = len(poses)
+    got = dict(cameras=n, points=int(state.num_points),
+               ate=float(evaluate.ate_rmse(poses, Rt_gt[:n])),
+               rot=float(evaluate.rotation_errors_deg(poses, Rt_gt[:n]).max()),
+               tracked_min=min(s["tracked"] for s in k.stats),
+               pnp_min=min(s["pnp_inliers"] for s in k.stats),
+               reproj_max=max(s["reproj_error"] for s in k.stats))
+    log(f"[klt] cameras {n}/{len(imgs)} points {got['points']} ATE {got['ate']:.6g} "
+        f"max_rot_err_deg {got['rot']:.4f}; per frame: tracked min {got['tracked_min']} "
+        f"(max {max(s['tracked'] for s in k.stats)}), pnp_inliers min {got['pnp_min']}, "
+        f"reproj_px max {got['reproj_max']:.4f}; {wall:.1f} s "
+        f"({wall / (len(imgs) - 2) * 1e3:.1f} ms per tracked frame, synchronized host clock); "
+        f"K1 launches {launches} (expected 1)")
+    log(f"[klt] JAX CPU record: {json.dumps(KLT_RECORD)}")
+    with open("chiprun_out/chip_smoke_klt.json", "w") as fh:
+        json.dump({"summary": got, "wall_s": wall, "stats": k.stats}, fh)
+    for key in KLT_BOUNDS:
+        ok, text = _klt_gate(key, got[key])
+        if not ok:
+            raise AssertionError(f"KLT {key} {got[key]} fails its gate {text}")
+    if not got["points"] >= 0.8 * KLT_RECORD["points"]:
+        raise AssertionError(f"KLT points {got['points']} < 0.8 x the JAX record's")
+    if launches != 1:
+        raise AssertionError(f"K1 launched {launches} times, expected 1 (the bootstrap)")
+    return launches
+
+
+LARGE = dict(num_cameras=250, image_size=(480, 360), focal=600.0, radius=9.0,
+             arc_degrees=145.0, num_strips=12, depth_spread=2.0)
+STITCH_BATCH = 32
+
+
+def chunk_pairs(pairs, batch):
+    """benchmarks/large_scene.py:63-81: chunks of at most `batch` pairs whose
+    i are distinct and whose j are distinct."""
+    chunks = []
+    for p in pairs:
+        for c in chunks:
+            if len(c) < batch and all(p[0] != q[0] and p[1] != q[1] for q in c):
+                c.append(p)
+                break
+        else:
+            chunks.append([p])
+    return chunks
+
+
+def phase_stitch(renders):
+    """Phase 14: benchmarks/large_scene.py's split-phase stitching at its
+    full width: 250 frames registered by ``IncrementalSfM`` with windowed BA,
+    covisibility retrieval, match + batched E-RANSAC once per pair, both
+    directions applied, then the finalize with the candidates re-applied
+    after each robust BA round."""
+    import dataclasses
+
+    from sfm_mvs_tpu_torch.models import ba, exhaustive, map_store
+    from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
+    from sfm_mvs_tpu_torch.models.refine import finalize_map
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.ops.sift import Features
+    from sfm_mvs_tpu_torch.utils.config import (
+        BaConfig, FrontendConfig, MapConfig, RansacConfig, SfmConfig,
+    )
+
+    (imgs, Rt_gt, _), render_s = renders.get("large")
+    F = len(imgs)
+    W, H = LARGE["image_size"]
+    f = LARGE["focal"]
+    cfg = SfmConfig(
+        fx=f, fy=f, cx=W / 2.0, cy=H / 2.0, downscale=1,
+        frontend=FrontendConfig(max_features=2048, num_octaves=4, upsample_input=True,
+                                contrast_threshold=0.012, lowe_ratio=0.75),
+        ransac=RansacConfig(essential_iters=1024, pnp_iters=1024),
+        map=MapConfig(max_cameras=256, max_points=131072),
+        ba=BaConfig(enabled=True, local_window=32, max_iterations=6))
+    cfg_stitch = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac,
+                                                                     essential_iters=512))
+    sfm = IncrementalSfM(cfg, device=DEVICE)
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    state = sfm.run(imgs)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    reg_launches = matching_cuda.launches
+    n_cams, ate_reg, _ = _pose_quality(state, Rt_gt)
+    if n_cams != F:
+        raise AssertionError(f"stitch scene: registered {n_cams}/{F} cameras")
+    if reg_launches != F - 1:
+        raise AssertionError(f"K1 launched {reg_launches} times in registration, expected {F - 1}")
+
+    # The stitch, once after registration (camera i is frame i).
+    matching_cuda.reset_launches()
+    t0 = time.perf_counter()
+    cnt = exhaustive.covisibility_matrix(state, image_size=(W, H)).cpu().numpy()
+    pairs = exhaustive.retrieve_stitch_pairs(
+        cnt, n_cams, min_gap=8, min_covis=48,
+        octaves=((8, 16), (16, 32), (32, 64), (64, 128), (128, 1 << 30)))
+    pairs = [(i, j) for i, j in pairs if j % 2 == 0]  # large_scene.py:314
+
+    def stack(rows):
+        return Features(*[torch.stack(col) for col in zip(*rows)])
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    gate = cfg.map.stitch_gate_px
+    cache, injected, reapply_first = [], 0, None
+    feats, tracks = sfm._cam_feats, sfm._cam_tracks
+    for c in chunk_pairs(pairs, STITCH_BATCH):
+        nb = len(c)
+        cp = c + [c[-1]] * (STITCH_BATCH - nb)
+        ii, jj = [i for i, _ in cp], [j for _, j in cp]
+        cand = exhaustive.stitch_candidates_batch(
+            state, torch.tensor(ii, device=DEVICE), torch.tensor(jj, device=DEVICE),
+            stack([feats[i] for i in ii]), stack([feats[j] for j in jj]),
+            torch.stack([tracks[i] for i in ii]), torch.stack([tracks[j] for j in jj]),
+            torch.arange(STITCH_BATCH) < nb, cfg_stitch, gen=gen)
+        cache.append(cand)
+        state, ca = exhaustive.apply_stitch_batch(state, cand.cam_a, cand.tids_a, cand.uv_a,
+                                                  cand.ok, gate)
+        state, cb = exhaustive.apply_stitch_batch(state, cand.cam_b, cand.tids_b, cand.uv_b,
+                                                  cand.ok, gate)
+        injected += int(ca.sum() + cb.sum())
+        if reapply_first is None:  # the same candidates again inject nothing
+            state, ra = exhaustive.apply_stitch_batch(state, cand.cam_a, cand.tids_a,
+                                                      cand.uv_a, cand.ok, gate)
+            state, rb = exhaustive.apply_stitch_batch(state, cand.cam_b, cand.tids_b,
+                                                      cand.uv_b, cand.ok, gate)
+            reapply_first = int(ra.sum() + rb.sum())
+    torch.cuda.synchronize()
+    stitch_s = time.perf_counter() - t0
+    stitch_launches = matching_cuda.launches
+
+    # The finalize: compact, shrink, robust BA <-> re-apply, polish.
+    t0 = time.perf_counter()
+    P_old = state.points.shape[0]
+    state, remap = map_store.compact_points(state)
+    live = int(state.num_points)
+    cap = 8192
+    while cap < live:
+        cap *= 2
+    state = map_store.shrink_map(state, cap)
+
+    def remap_tids(t):
+        return torch.where(t >= 0, remap[torch.clamp(t, 0, P_old - 1).long()],
+                           torch.full_like(t, -1))
+
+    cache = [c._replace(tids_a=remap_tids(c.tids_a), tids_b=remap_tids(c.tids_b)) for c in cache]
+    robust, reinjected = [], 0
+    for _ in range(2):
+        state, stats = ba.bundle_adjust_map(state, max_iterations=40, cg_iters=30,
+                                            huber_delta=3.0)
+        robust.append(float(stats.final_cost))
+        for cand in cache:
+            state, ca = exhaustive.apply_stitch_batch(state, cand.cam_a, cand.tids_a,
+                                                      cand.uv_a, cand.ok, gate)
+            state, cb = exhaustive.apply_stitch_batch(state, cand.cam_b, cand.tids_b,
+                                                      cand.uv_b, cand.ok, gate)
+            reinjected += int(ca.sum() + cb.sum())
+    state, fin = finalize_map(state, max_iterations=15)
+    torch.cuda.synchronize()
+    fin_s = time.perf_counter() - t0
+    n_fin, ate, rot = _pose_quality(state, Rt_gt)
+    final_cost = fin["round1_cost"]
+    log(f"[stitch] scene {F} frames {LARGE['image_size']}, render waited {render_s:.1f} s; "
+        f"registration (IncrementalSfM, window BA 32 cams, 6 iterations) {n_cams}/{F} "
+        f"cameras, ATE {ate_reg:.6f}, {reg_s:.1f} s, K1 launches {reg_launches}")
+    log(f"[stitch] covisibility + retrieval: {len(pairs)} pairs in "
+        f"{len(cache)} chunks of <= {STITCH_BATCH}; injected {injected} observations; "
+        f"re-apply right after {reapply_first}; {stitch_s:.2f} s; K1 launches {stitch_launches} "
+        f"(expected {len(pairs)}, one per live pair)")
+    log(f"[stitch] finalize: capacity {cap} ({live} live), robust costs "
+        f"{robust[0]:.4f} / {robust[1]:.4f} px^2, re-applied {reinjected}, final cost "
+        f"{final_cost:.4f} px^2, cameras {n_fin}/{F}, ATE {ate:.6f} (v5e record 0.02425, "
+        f"interleaved), max_rot_err_deg {rot:.4f}; {fin_s:.2f} s")
+    if n_fin != F:
+        raise AssertionError(f"stitch: {n_fin}/{F} cameras after finalize")
+    if not ate < 0.05:
+        raise AssertionError(f"stitch: ATE {ate} >= 0.05")
+    if not (pairs and injected > 0):
+        raise AssertionError(f"stitch: {len(pairs)} pairs, {injected} injected")
+    if reapply_first != 0:
+        raise AssertionError(f"stitch: re-applying the first chunk injected {reapply_first}")
+    if not final_cost < 1.0:
+        raise AssertionError(f"stitch: final cost {final_cost} >= 1 px^2")
+    if stitch_launches != len(pairs):
+        raise AssertionError(f"K1 launched {stitch_launches} times in the stitch, expected "
+                             f"{len(pairs)}")
+    return reg_launches + stitch_launches
 
 
 MVS_RECORD = dict(rel_rms=0.01421, median=0.00299, under_1pct=0.8919, coverage_gt=0.8008,
@@ -1228,6 +1473,45 @@ def phase_profile(imgs, cfg, n_frames=10):
     log(summary_i)
 
 
+def profile_klt(imgs, cfg, n_frames=12):
+    """Where a KLT frame's time goes (``--profile`` only): the synchronized
+    wall of each stage of ``KltSfM.run`` over phase 4's first ``n_frames``
+    frames, then torch.profiler over one warm ``klt_step``."""
+    from sfm_mvs_tpu_torch.models import klt, map_store
+    from sfm_mvs_tpu_torch.models.incremental import frame_generator
+    from sfm_mvs_tpu_torch.ops import optical_flow, ransac, sift, triangulation
+
+    with StageClock([
+        (klt, "klt_step", "klt_step"),
+        (optical_flow, "track_points", "track_points"),
+        (ransac, "ransac_pnp", "ransac_pnp"),
+        (triangulation, "triangulate_euclidean", "triangulate"),
+        (map_store, "append_observations", "append_observations (3 per frame)"),
+        (sift, "detect_and_compute", "detect (frames 0, 1 and every 5th)"),
+        (klt, "replenish", "replenish"),
+    ]) as clock:
+        k = klt.KltSfM(cfg, redetect_every=5, device=DEVICE)
+        k.run(imgs[:n_frames])
+    lines = [f"KLT frames 2..{n_frames - 1}, stage medians:"]
+    for key, secs in clock.calls.items():
+        lines.append(f"{key:42s} n={len(secs):4d} median {statistics.median(secs) * 1e3:8.2f} ms")
+
+    state = k.state
+    g = torch.as_tensor(imgs[n_frames], device=DEVICE)
+    gen = frame_generator(DEVICE, 0, n_frames)
+    klt.klt_step(gen, state, g, cfg)
+    wall, busy, n_ops, prof = _profile_window(lambda: klt.klt_step(gen, state, g, cfg))
+    summary = (f"[profile] one warm klt_step (4096 slots): wall {wall:.1f} ms, device busy "
+               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {n_ops} device ops")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
+                                      max_name_column_width=70)
+    with open("chiprun_out/profile.txt", "a") as fh:
+        fh.write("\n".join(lines + [summary, table]) + "\n")
+    for ln in lines:
+        log(f"[profile] {ln}")
+    log(summary)
+
+
 def microbench() -> None:
     """The card's limits behind K1's design (csrc/microbench.cu), each a
     kernel timed with CUDA events after a warm-up launch."""
@@ -1284,17 +1568,53 @@ def microbench() -> None:
     log(f"[micro] at {clock_hz / 1e6:.0f} MHz (clocks.max.sm), {sms} SMs")
 
 
+class Renders:
+    """The scenes of phases 11 and 14, rendered on the host by one spawned
+    worker process while the earlier phases drive the card."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
+
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        self._jobs = {
+            "distorted": self._pool.submit(render_staircase_sequence, **SCENE, dist=DIST),
+            "large": self._pool.submit(render_staircase_sequence, **LARGE),
+        }
+
+    def get(self, name):
+        """(the render's result, seconds waited for it)."""
+        t0 = time.time()
+        out = self._jobs[name].result()
+        return out, time.time() - t0
+
+    def close(self):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
 def main(argv) -> int:
     t_start = time.time()
     smi = phase_device()
     import sfm_mvs_tpu_torch  # noqa: F401  (sets full-fp32 matmul flags)
-    from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
 
     os.makedirs("chiprun_out", exist_ok=True)
     if "--microbench" in argv:
         microbench()
         return 0
     build_s, registers, spills = phase_build()
+    renders = Renders()
+    try:
+        return run_phases(argv, smi, t_start, build_s, registers, spills, renders)
+    finally:
+        renders.close()
+
+
+def run_phases(argv, smi, t_start, build_s, registers, spills, renders) -> int:
+    from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
+
     t0 = time.time()
     imgs, Rt_gt, _, gt_depths = render_staircase_sequence(**SCENE, return_depth=True)
     log(f"[scene] rendered {len(imgs)} frames {SCENE['image_size']} in {time.time() - t0:.1f}s")
@@ -1310,11 +1630,14 @@ def main(argv) -> int:
     launches += phase_loop_cli(Rt_gt)
     launches += phase_resume()
     mvs_map = phase_mvs(stack8, bench_map, Rt_gt, gt_depths)
-    launches += phase_intrinsics(cfg)
+    launches += phase_intrinsics(cfg, renders)
     launches += phase_global(cfg)
+    launches += phase_klt(imgs, Rt_gt, cfg)
+    launches += phase_stitch(renders)
     if "--profile" in argv:
         phase_profile(imgs, cfg)
         profile_sweep(stack8, mvs_map)
+        profile_klt(imgs, cfg)
     log(f"[total] {time.time() - t_start:.1f} s, kernel build included")
     print(smi)
     print(json.dumps({"kernels": [{

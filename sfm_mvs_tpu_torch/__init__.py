@@ -1,18 +1,28 @@
 """sfm_mvs_tpu_torch — the PyTorch / CUDA port of sfm_mvs_tpu.
 
-The same incremental Structure-from-Motion pipeline as the JAX package
-``sfm_mvs_tpu`` (its reference), written in PyTorch for an NVIDIA H100:
-SIFT detection, brute-force 2-NN matching with the Lowe ratio test (a
-hand-written CUDA kernel on the GPU, ``csrc/knn2.cu``), the two-view
-bootstrap and per-frame PnP registration with triangulation into a
-fixed-capacity map. The package imports ``torch`` and numpy only.
+The same Structure-from-Motion and multi-view-stereo system as the JAX
+package ``sfm_mvs_tpu`` (its reference), written in PyTorch for an NVIDIA
+H100. The package imports ``torch`` and numpy only. It holds SIFT
+detection, brute-force 2-NN matching with the Lowe ratio test (a
+hand-written CUDA kernel on the GPU, ``csrc/knn2.cu``), batched RANSAC
+(essential, PnP, homography), the incremental driver (sequential or
+view-graph bootstrap, per-frame or windowed bundle adjustment,
+checkpoints and resume, finalize with loop closure, duplicate merging,
+the densification sweep and BA of the intrinsics), the track-based global
+pipeline, the KLT-tracking pipeline (pyramidal Lucas-Kanade), the
+split-phase loop stitching (covisibility retrieval, batched
+match-and-verify, re-apply after BA), plane-sweep MVS and the CLI
+(``python -m sfm_mvs_tpu_torch``). Multi-GPU (the JAX package's
+``parallel/``) is not ported yet.
 
 Subpackages mirror the JAX package's layout and names:
 
 ops     Geometry and vision functions on tensors, plus the CUDA matcher.
-models  Map store, two-view bootstrap, incremental driver.
-utils   Config (shared dataclasses), evaluation, synthetic scenes,
-        conversion from the JAX package's state.
+models  Map store, bootstraps, incremental / global / KLT drivers, bundle
+        adjustment, refinement, densification, stitching, MVS.
+utils   Config (shared dataclasses), IO and checkpoints, evaluation,
+        metrics, profiling, synthetic scenes, visualization, conversion
+        from the JAX package's state.
 """
 
 __version__ = "0.1.0"

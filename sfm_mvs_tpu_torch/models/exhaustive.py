@@ -7,12 +7,18 @@ frame pair within the window is matched and gets an E-RANSAC inlier
 count, a relative pose and a parallax angle; the auto-bootstrap driver
 picks its initial pair from them), and the loop closure of
 ``IncrementalSfM.finalize``: ``strongest_loop_pairs`` and
-``inject_reobservations``. The JAX package matches these pairs with its
-plain XLA matcher; here they go through the 2-NN kernel on CUDA tensors
-(the same function; its wrapper takes the plain version for CPU tensors),
-or the plain matcher with ``use_pallas_matcher=False``. The batched
-stitching functions of that module (``inject_reobservations_batch`` and
-the rest, which only ``benchmarks/large_scene.py`` calls) are not ported.
+``inject_reobservations``; and the split-phase loop stitching of
+``benchmarks/large_scene.py``: ``covisibility_matrix`` and
+``retrieve_stitch_pairs`` pick the pairs, ``stitch_candidates_batch``
+matches and verifies a stack of them once (one batched 8-point E-RANSAC),
+``apply_stitch_batch`` re-applies the candidates after every BA round, and
+``inject_reobservations_batch`` does both in one call. The JAX package
+matches these pairs with its plain XLA matcher; here they go through the
+2-NN kernel on CUDA tensors (the same function; its wrapper takes the plain
+version for CPU tensors), or the plain matcher with
+``use_pallas_matcher=False``. Batched scatters write only the accepted
+entries, made distinct first, where the JAX package drops the rest into an
+out-of-range row.
 """
 
 from __future__ import annotations
@@ -202,3 +208,237 @@ def inject_reobservations(state, cam_i, cam_j, feats_i: Features, feats_j: Featu
                                                   sample_idx)
     state = map_store.append_observations(state, cam_j, tids, uv_j, ok)
     return state, ok.sum()
+
+
+def _row(feats: Features, b: int) -> Features:
+    return Features(*[f[b] for f in feats])
+
+
+def _match_batch(feats_i: Features, feats_j: Features, pair_valid, cfg: SfmConfig):
+    """(B, M) matches of B stacked pairs: one ``_match`` (K1 on CUDA
+    tensors) per live pair; pad rows (pair_valid False) are not matched and
+    come back all invalid."""
+    B, M = feats_i.valid.shape
+    dev = feats_i.valid.device
+    none = matching.Matches(idx0=torch.arange(M, dtype=torch.int32, device=dev),
+                            idx1=torch.zeros(M, dtype=torch.int32, device=dev),
+                            valid=torch.zeros(M, dtype=torch.bool, device=dev))
+    live = torch.as_tensor(pair_valid).tolist()
+    rows = [_match(_row(feats_i, b), _row(feats_j, b), cfg) if live[b] else none
+            for b in range(B)]
+    return matching.Matches(*[torch.stack(col) for col in zip(*rows)])
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b]] for every row b: x (B, F, ...), idx (B, M)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx.long()]
+
+
+def _match_points_batch(feats_i: Features, feats_j: Features, m: matching.Matches):
+    """Batched ``matching.gather_match_points``: (uv_i, uv_j, valid), (B, M)."""
+    v = m.valid[..., None]
+    zero = torch.zeros((), dtype=feats_i.xy.dtype, device=feats_i.xy.device)
+    return (torch.where(v, _gather_rows(feats_i.xy, m.idx0), zero),
+            torch.where(v, _gather_rows(feats_j.xy, m.idx1), zero), m.valid)
+
+
+def _write_observations(state, ok, tids, cam, uv):
+    """obs_uv / obs_mask written at (tids[b, m], cam[b]) for every ok entry
+    (the JAX package scatters the rest into an out-of-range row with
+    mode="drop"). The targets must be distinct (_dedup_scatter_targets)."""
+    b, k = torch.nonzero(ok & (tids >= 0), as_tuple=True)
+    p, c = tids[b, k].long(), cam.long()[b]
+    obs_uv = state.obs_uv.index_put((p, c), uv[b, k])
+    obs_mask = state.obs_mask.index_put((p, c), torch.ones_like(p, dtype=torch.bool))
+    return state._replace(obs_uv=obs_uv, obs_mask=obs_mask)
+
+
+def _gate(state, cam, tids, uv, ok, gate_px):
+    """Map gates of B candidate rows against camera cam[b]: live point,
+    positive depth, reprojection error under gate_px, not yet observed
+    there. Returns (ok, err)."""
+    P = state.points.shape[0]
+    safe = torch.clamp(tids, 0, P - 1).long()
+    has = ok & (tids >= 0) & state.point_valid[safe]
+    uv_proj, depth = projection.project_depth(state.points[safe], state.poses[cam], state.K)
+    err = torch.linalg.norm(uv_proj - uv, dim=-1)
+    fresh = ~state.obs_mask[safe, cam[:, None]]
+    return has & (depth > 0) & (err < gate_px) & fresh, err
+
+
+def inject_reobservations_batch(state, cam_js, feats_i: Features, feats_j: Features, tracks_i,
+                                pair_valid, cfg: SfmConfig, gen=None, max_err_px=None,
+                                epipolar_verify: bool = False, sample_idx=None):
+    """Batched :func:`inject_reobservations`: B pairs, one direction each.
+
+    feats_*: Features with a leading (B,) axis; tracks_i: (B, F); cam_js:
+    (B,); pair_valid: (B,) (pad rows False). With `epipolar_verify`, one
+    ``ransac_essential_batch`` verifies every pair (draws from `gen`, or
+    injected samples `sample_idx`, (B, essential_iters, 8)). Duplicate
+    targets are resolved by ``_dedup_scatter_targets``: rows sharing a
+    camera keep the lowest row, matches sharing a track id within a row the
+    lowest reprojection error. Returns (state, per-pair injected counts (B,)).
+    """
+    rc = cfg.ransac
+    if epipolar_verify and gen is None and sample_idx is None:
+        raise ValueError("epipolar_verify=True requires a generator")
+    pair_valid = torch.as_tensor(pair_valid, device=feats_i.valid.device)
+    m = _match_batch(feats_i, feats_j, pair_valid, cfg)
+    uv_i, uv_j, mvalid = _match_points_batch(feats_i, feats_j, m)
+    K = state.K
+    if epipolar_verify:
+        res = ransac.ransac_essential_batch(
+            gen, projection.normalize_points(uv_i, K), projection.normalize_points(uv_j, K),
+            mvalid, 0.5 * (K[0, 0] + K[1, 1]), threshold_px=rc.essential_threshold_px,
+            iters=rc.essential_iters, sample_idx=sample_idx)
+        mvalid = mvalid & res.inliers & (res.num_inliers >= rc.stitch_min_inliers)[:, None]
+    gate_px = rc.pnp_threshold_px if max_err_px is None else max_err_px
+    tids = _gather_rows(tracks_i, m.idx0)
+    C = state.poses.shape[0]
+    cam = torch.clamp(torch.as_tensor(cam_js, device=K.device), 0, C - 1).long()
+    ok, err = _gate(state, cam, tids, uv_j, mvalid, gate_px)
+    ok = ok & pair_valid[:, None]
+    ok = _dedup_scatter_targets(ok, tids, err, cam, state.points.shape[0], C)
+    return _write_observations(state, ok, tids, cam, uv_j), ok.sum(1)
+
+
+class StitchCandidates(NamedTuple):
+    """Verified (match + pair-local E-RANSAC) stitch candidates of a batch
+    of pairs, in both directions. Re-applying them against updated map
+    geometry (apply_stitch_batch) costs a projection gate and a scatter, so
+    a stitch <-> robust-BA alternation pays for matching and RANSAC once."""
+
+    cam_a: torch.Tensor  # (B,) destination cameras, direction i -> j
+    tids_a: torch.Tensor  # (B, M) map point ids (tracks_i at idx0)
+    uv_a: torch.Tensor  # (B, M, 2) observation pixels in cam_a
+    cam_b: torch.Tensor  # (B,) destination cameras, direction j -> i
+    tids_b: torch.Tensor  # (B, M)
+    uv_b: torch.Tensor  # (B, M, 2)
+    ok: torch.Tensor  # (B, M) epipolar-verified match mask (shared)
+
+
+def stitch_candidates_batch(state, cam_is, cam_js, feats_i: Features, feats_j: Features,
+                            tracks_i, tracks_j, pair_valid, cfg: SfmConfig, gen=None,
+                            sample_idx=None) -> StitchCandidates:
+    """Match and epipolar-verify B pairs; both injection directions come
+    from the one match set. K1 runs once per live pair, then one
+    ``ransac_essential_batch`` (8-point, essential_iters) verifies the
+    stack: draws from `gen`, or injected samples `sample_idx` (B, iters, 8).
+
+    feats_*: Features with a leading (B,) axis; tracks_*: (B, F); cam_*:
+    (B,); pair_valid: (B,). No map gate here (apply_stitch_batch), so the
+    candidates stay valid across BA rounds.
+    """
+    rc = cfg.ransac
+    pair_valid = torch.as_tensor(pair_valid, device=feats_i.valid.device)
+    m = _match_batch(feats_i, feats_j, pair_valid, cfg)
+    uv_i, uv_j, mvalid = _match_points_batch(feats_i, feats_j, m)
+    K = state.K
+    res = ransac.ransac_essential_batch(
+        gen, projection.normalize_points(uv_i, K), projection.normalize_points(uv_j, K),
+        mvalid, 0.5 * (K[0, 0] + K[1, 1]), threshold_px=rc.essential_threshold_px,
+        iters=rc.essential_iters, sample_idx=sample_idx)
+    enough = res.num_inliers >= rc.stitch_min_inliers
+    ok = mvalid & res.inliers & enough[:, None] & pair_valid[:, None]
+    return StitchCandidates(
+        cam_a=torch.as_tensor(cam_js, device=K.device), tids_a=_gather_rows(tracks_i, m.idx0),
+        uv_a=uv_j, cam_b=torch.as_tensor(cam_is, device=K.device),
+        tids_b=_gather_rows(tracks_j, m.idx1), uv_b=uv_i, ok=ok)
+
+
+def apply_stitch_batch(state, cam_dst, tids, uv, ok_epi, gate_px):
+    """Map-gated injection of pre-verified candidates, one direction.
+
+    Gates: live point, positive depth, reprojection error under gate_px
+    against the current geometry, not yet observed. Cheap (projection and
+    scatter), so it can run again after every BA round. Destinations are
+    made distinct first (``_dedup_scatter_targets``): rows sharing a camera
+    keep the lowest row, matches sharing a track id the lowest error.
+    Returns (state, per-pair injected counts (B,)).
+    """
+    P, C = state.obs_mask.shape
+    cam = torch.clamp(torch.as_tensor(cam_dst, device=tids.device), 0, C - 1).long()
+    ok, err = _gate(state, cam, tids, uv, ok_epi, gate_px)
+    ok = _dedup_scatter_targets(ok, tids, err, cam, P, C)
+    return _write_observations(state, ok, tids, cam, uv), ok.sum(1)
+
+
+def _dedup_scatter_targets(ok, tids, err, cam_dst, P: int, C: int):
+    """Make batched (point, camera) scatter destinations distinct.
+
+    (a) Across rows: among rows with any valid candidate sharing a
+    destination camera, the lowest row index wins (the rest are masked).
+    (b) Within a row: among valid matches sharing a track id, the lowest
+    `err` wins; ties go to the lowest match index (a stable lexsort: by err,
+    then stably by track id).
+    """
+    B, M = tids.shape
+    dev = tids.device
+    row_idx = torch.arange(B, device=dev)
+    cam_key = torch.where(ok.any(1), torch.clamp(cam_dst.long(), 0, C - 1),
+                          torch.full_like(row_idx, C))
+    winner = torch.full((C + 1,), B, dtype=torch.int64, device=dev)
+    winner = winner.scatter_reduce(0, cam_key, row_idx, reduce="amin")
+    ok = ok & (winner[cam_key] == row_idx)[:, None]
+
+    key_t = torch.where(ok, tids.long(), torch.full_like(tids, P).long())  # masked: last
+    by_err = torch.argsort(err, dim=1, stable=True)
+    order = torch.gather(by_err, 1, torch.argsort(torch.gather(key_t, 1, by_err), dim=1,
+                                                  stable=True))
+    st = torch.gather(key_t, 1, order)
+    first = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                       st[:, 1:] != st[:, :-1]], dim=1)
+    return ok & torch.zeros_like(ok).scatter(1, order, first)
+
+
+def covisibility_matrix(state, image_size: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """(C, C) int32 covisibility counts from the current map, the retrieval
+    signal of stitch-pair selection: cnt[i, j] is the number of points
+    camera i observes that project inside camera j's image at positive
+    depth. One (C, P) x (P, C) FP32 product (TF32 off), exact up to 2^24.
+
+    image_size: (W, H) of the cameras' images; without it W = 2 cx and
+    H = 2 cy, which is wrong for an off-centre principal point.
+    """
+    pts = state.points
+    R = state.poses[:, :, :3]
+    t = state.poses[:, :, 3]
+    Xc = torch.einsum("cij,pj->cpi", R, pts) + t[:, None, :]
+    z = Xc[..., 2]
+    zs = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    K = state.K
+    u = Xc[..., 0] / zs * K[0, 0] + K[0, 2]
+    v = Xc[..., 1] / zs * K[1, 1] + K[1, 2]
+    if image_size is not None:
+        W, H = float(image_size[0]), float(image_size[1])
+    else:
+        W, H = 2.0 * K[0, 2], 2.0 * K[1, 2]
+    sees = ((z > 0.0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+            & state.point_valid[None, :] & state.cam_valid[:, None])  # (C, P)
+    obs = (state.obs_mask & state.point_valid[:, None]).to(torch.float32)
+    return (obs.T @ sees.T.to(torch.float32)).to(torch.int32)
+
+
+def retrieve_stitch_pairs(cnt: np.ndarray, n_cams: int, min_gap: int = 4, min_covis: int = 48,
+                          octaves: tuple = ((4, 8), (8, 16), (16, 32), (32, 64), (64, 1 << 30))):
+    """Stitch pairs from the covisibility matrix (host numpy).
+
+    For each camera j, at most one partner i < j per distance octave: the
+    farthest covisible camera in the bucket (long links straighten drift;
+    short ones densify local tracks). Pairs that do not overlap are never
+    matched. Returns a list of (i, j), i < j, without repeats.
+    """
+    pairs = []
+    for j in range(n_cams):
+        for lo, hi in octaves:
+            cands = [i for i in range(max(0, j - min(hi - 1, j)), j - lo + 1)
+                     if (j - i) >= max(lo, min_gap) and cnt[i, j] >= min_covis]
+            if cands:
+                pairs.append((min(cands), j))
+    seen = set()
+    out = []
+    for p in pairs:
+        if p not in seen:
+            seen.add(p)
+            out.append(p)
+    return out

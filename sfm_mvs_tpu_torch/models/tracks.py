@@ -42,8 +42,14 @@ class PairEstimate(NamedTuple):
     num_inliers: torch.Tensor  # () E-RANSAC inliers
 
 
-def estimate_pair(gen, feats0: Features, feats1: Features, K, cfg: SfmConfig) -> PairEstimate:
-    """Match one adjacent pair; estimate E (-> relative pose) and H."""
+def estimate_pair(gen, feats0: Features, feats1: Features, K, cfg: SfmConfig,
+                  sample_idx: Optional[torch.Tensor] = None,
+                  sample_idx_h: Optional[torch.Tensor] = None) -> PairEstimate:
+    """Match one adjacent pair; estimate E (-> relative pose) and H.
+
+    E's draws, then H's, come from `gen`; sample_idx (essential_iters, 8)
+    and sample_idx_h (homography_iters, 4) replace them when given.
+    """
     fc, rc = cfg.frontend, cfg.ransac
     m = matching.match_with_config(feats0.desc, feats1.desc, feats0.valid, feats1.valid, fc)
     uv0, uv1, mvalid = matching.gather_match_points(feats0.xy, feats1.xy, m)
@@ -51,11 +57,11 @@ def estimate_pair(gen, feats0: Features, feats1: Features, K, cfg: SfmConfig) ->
     n1 = projection.normalize_points(uv1, K)
     e_res = ransac.ransac_essential(gen, n0, n1, mvalid, 0.5 * (K[0, 0] + K[1, 1]),
                                     threshold_px=rc.essential_threshold_px,
-                                    iters=rc.essential_iters)
+                                    iters=rc.essential_iters, sample_idx=sample_idx)
     R, t, _ = recover_pose(e_res.model, n0, n1, e_res.inliers)
     h_res = ransac.ransac_homography(gen, uv0, uv1, mvalid,
                                      threshold_px=rc.homography_threshold_px,
-                                     iters=rc.homography_iters)
+                                     iters=rc.homography_iters, sample_idx=sample_idx_h)
     return PairEstimate(H=h_res.model, R=R, t=t, num_inliers=e_res.num_inliers)
 
 

@@ -1,8 +1,9 @@
 """Essential-matrix estimation and pose recovery.
 
-PyTorch port of ``sfm_mvs_tpu/ops/epipolar.py`` (the parts the
-incremental path runs): the normalized 8-point solver with projection onto
-the essential manifold (batched over hypotheses), Sampson residuals, the
+PyTorch port of ``sfm_mvs_tpu/ops/epipolar.py``: the normalized 8-point
+solver with projection onto the essential manifold (batched over
+hypotheses), the Hartley-normalized 8-point fundamental matrix, Sampson
+residuals, the
 4-candidate decomposition with cheirality voting (cv2.recoverPose), the
 homography-based pose for near-planar pairs, and a Gauss-Newton polish of
 the relative pose on the 5-dof manifold.
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from sfm_mvs_tpu_torch.ops import lie, linalg, triangulation
+from sfm_mvs_tpu_torch.ops import lie, linalg, projection, triangulation
 
 
 def essential_eight_point(pts1, pts2, weights=None, method: str = "svd"):
@@ -40,14 +41,33 @@ def essential_eight_point(pts1, pts2, weights=None, method: str = "svd"):
     return (U * diag) @ Vt
 
 
+def fundamental_eight_point(pts1, pts2, mask=None) -> torch.Tensor:
+    """Hartley-normalized 8-point fundamental matrix on *pixel* coords,
+    rank-2 projection included. pts1, pts2: (N, 2); mask: optional (N,).
+    Returns F: (3, 3)."""
+    if mask is None:
+        mask = torch.ones(pts1.shape[0], dtype=torch.bool, device=pts1.device)
+    n1, T1 = projection.hartley_normalization(pts1, mask)
+    n2, T2 = projection.hartley_normalization(pts2, mask)
+    x1, y1 = n1[:, 0], n1[:, 1]
+    x2, y2 = n2[:, 0], n2[:, 1]
+    ones = torch.ones_like(x1)
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, ones], dim=-1)
+    A = A * mask.to(A.dtype)[:, None]
+    F = linalg.svd(A)[2][-1].reshape(3, 3)
+    U, S, Vt = linalg.svd(F)
+    S = torch.cat([S[:2], torch.zeros_like(S[2:])])
+    return T2.T @ ((U * S) @ Vt) @ T1
+
+
 def sampson_error(E, pts1, pts2) -> torch.Tensor:
     """Squared Sampson distance per correspondence.
 
-    E: (..., 3, 3); pts1, pts2: (N, 2) in E's coordinate frame. Returns
-    (..., N).
+    E: (..., 3, 3); pts1, pts2: (..., N, 2) in E's coordinate frame,
+    broadcast against E's batch. Returns (..., N).
     """
-    x1 = torch.cat([pts1, torch.ones_like(pts1[:, :1])], dim=-1)
-    x2 = torch.cat([pts2, torch.ones_like(pts2[:, :1])], dim=-1)
+    x1 = torch.cat([pts1, torch.ones_like(pts1[..., :1])], dim=-1)
+    x2 = torch.cat([pts2, torch.ones_like(pts2[..., :1])], dim=-1)
     Ex1 = x1 @ E.transpose(-1, -2)  # (..., N, 3)
     Etx2 = x2 @ E
     x2tEx1 = (x2 * Ex1).sum(-1)

@@ -18,9 +18,19 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor, eps: float) -> torch.Tensor:
     return num / torch.where(den.abs() < eps, torch.full_like(den, eps), den)
 
 
+def to_homogeneous(pts: torch.Tensor) -> torch.Tensor:
+    """(..., D) -> (..., D+1) by appending ones."""
+    return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
 def from_homogeneous(pts: torch.Tensor) -> torch.Tensor:
     """(..., D+1) -> (..., D) by dividing by the last coordinate."""
     return _safe_div(pts[..., :-1], pts[..., -1:], _EPS)
+
+
+def compose_projection(K: torch.Tensor, Rt: torch.Tensor) -> torch.Tensor:
+    """P = K [R|t]. K: (..., 3, 3), Rt: (..., 3, 4) -> (..., 3, 4)."""
+    return K @ Rt
 
 
 def distort_normalized(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,15 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     return _conv1d(_conv1d(img, _PYR_TAPS, 0), _PYR_TAPS, 1)[::2, ::2]
 
 
+def img_downscale(img: torch.Tensor, downscale: int) -> torch.Tensor:
+    """Repeated pyr_down halvings, log2(downscale) of them: downscale in
+    {1, 2, 4, 8, ...} (the reference's img_downscale, sfm.py:36-42)."""
+    times = int(round(math.log2(int(downscale)))) if downscale > 1 else 0
+    for _ in range(times):
+        img = pyr_down(img)
+    return img
+
+
 def upsample2(img: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample (OpenCV SIFT's initial image doubling):
     interleave (x[i], (x[i] + x[i+1]) / 2) per axis, last row replicated."""

@@ -105,6 +105,48 @@ def ransac_essential(gen, norm0, norm1, mask, focal, threshold_px: float = 1.0,
     return RansacResult(E, inliers, inliers.sum())
 
 
+def ransac_essential_batch(gen, norm0, norm1, mask, focal, threshold_px: float = 1.0,
+                           iters: int = 2048, refit_rounds: int = 2, solver: str = "8pt",
+                           sample_idx: Optional[torch.Tensor] = None) -> RansacResult:
+    """:func:`ransac_essential` over a stack of B pairs at once (the JAX
+    package vmaps it over the pairs).
+
+    norm0, norm1: (B, N, 2); mask: (B, N); focal: a scalar. All B x iters
+    hypotheses are solved and scored in one pass, the argmax taken per pair,
+    and each pair refit with the single-pair guards (strict inlier gain, no
+    refit from an empty set). Only the 8-point solver is batched.
+    sample_idx: optional (B, iters, 8) indices into each pair's compacted
+    correspondences. Returns model (B, 3, 3), inliers (B, N), counts (B,).
+    """
+    if solver != "8pt":
+        raise ValueError(f"ransac_essential_batch supports solver='8pt' only, not {solver!r}")
+    B, N = mask.shape
+    rows = torch.arange(B, device=mask.device)
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
+    c0 = norm0[rows[:, None], order]
+    c1 = norm1[rows[:, None], order]
+    if sample_idx is None:
+        u = torch.rand((B, iters, 8), generator=gen, device=mask.device)
+        cnt = torch.clamp_min(mask.sum(1), 8).to(u.dtype)[:, None, None]
+        sample_idx = torch.clamp(torch.floor(u * cnt).to(torch.int64), 0, N - 1)
+    idx = sample_idx.long()
+    Es = epipolar.essential_eight_point(c0[rows[:, None, None], idx],
+                                        c1[rows[:, None, None], idx])  # (B, S, 3, 3)
+    residuals = epipolar.epipolar_residual_pixels(Es, norm0[:, None], norm1[:, None], focal)
+    inl = (residuals < threshold_px) & mask[:, None, :]
+    best = torch.argmax(inl.sum(-1), dim=1)
+    E = Es[rows, best]
+    inliers = inl[rows, best]
+    for _ in range(refit_rounds):
+        E2 = epipolar.essential_eight_point(norm0, norm1, inliers.to(norm0.dtype))
+        res2 = epipolar.epipolar_residual_pixels(E2, norm0, norm1, focal)
+        inl2 = (res2 < threshold_px) & mask
+        better = (inl2.sum(-1) > inliers.sum(-1)) & inliers.any(-1)
+        E = torch.where(better[:, None, None], E2, E)
+        inliers = torch.where(better[:, None], inl2, inliers)
+    return RansacResult(E, inliers, inliers.sum(-1))
+
+
 def ransac_pnp(gen, X, uv_pix, uv_norm, mask, K, threshold_px: float = 4.0,
                iters: int = 1024, refine_iters: int = 10, use_p3p: bool = True,
                sample_idx: Optional[torch.Tensor] = None,

@@ -465,3 +465,20 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
         desc=desc,
         valid=val_f,
     )
+
+
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """BGR (H, W, 3) or (H, W), uint8 or float -> grayscale float32.
+
+    ITU-R BT.601 weights (cv2.cvtColor BGR2GRAY, sfm.py:243-244); channel
+    order BGR, as the reference passes it. Only uint8 input is divided by
+    255.
+    """
+    was_uint8 = img.dtype == torch.uint8
+    img = img.to(torch.float32)
+    if img.dim() == 2:
+        gray = img
+    else:
+        b, g, r = img[..., 0], img[..., 1], img[..., 2]
+        gray = 0.114 * b + 0.587 * g + 0.299 * r
+    return gray / 255.0 if was_uint8 else gray

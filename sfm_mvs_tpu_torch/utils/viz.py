@@ -1,10 +1,11 @@
-"""Headless visualization artifacts: camera frusta, error plot, turntable GIF.
+"""Headless visualization artifacts: overlays, camera frusta, error plot,
+turntable GIF.
 
-Port of the parts of ``sfm_mvs_tpu/utils/viz.py`` that the CLI writes, on
-numpy arrays (poses and points moved to the host). The frusta PLY needs
-numpy only; the error plot needs matplotlib and the turntable GIF
-matplotlib and PIL. Where one is not installed those two functions raise
-the ``ImportError`` of its import, which names the package.
+Port of ``sfm_mvs_tpu/utils/viz.py``, on numpy arrays (poses and points
+moved to the host). The point overlay and the frusta PLY need numpy only;
+the PNG writer needs PIL, the error plot matplotlib and the turntable GIF
+matplotlib and PIL. Where one is not installed those functions raise the
+``ImportError`` of its import, which names the package.
 """
 
 from __future__ import annotations
@@ -13,6 +14,33 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+
+
+def draw_points(image_gray: np.ndarray, pts: np.ndarray, radius: int = 2,
+                reproj: bool = True) -> np.ndarray:
+    """Overlay points on a grayscale image -> (H, W, 3) uint8 RGB.
+
+    The headless Draw_points (sfm.py:160-166): detected keypoints green
+    (reproj=False), reprojected points red (reproj=True).
+    """
+    H, W = image_gray.shape
+    img = np.repeat((np.clip(image_gray, 0, 1) * 255).astype(np.uint8)[..., None], 3, -1)
+    color = np.array([255, 40, 40] if reproj else [40, 255, 40], dtype=np.uint8)
+    for x, y in np.asarray(pts):
+        xi, yi = int(round(x)), int(round(y))
+        x0, x1 = max(xi - radius, 0), min(xi + radius + 1, W)
+        y0, y1 = max(yi - radius, 0), min(yi + radius + 1, H)
+        if x0 < x1 and y0 < y1:
+            img[y0:y1, x0:x1] = color
+    return img
+
+
+def save_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 (H, W) or (H, W, 3) image as PNG (PIL)."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    Image.fromarray(img).save(path)
 
 
 def camera_frustum_vertices(Rt: np.ndarray, scale: float = 0.3) -> np.ndarray:

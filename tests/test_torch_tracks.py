@@ -8,6 +8,11 @@ below 4 px^2, and the final sweep grows the map. ``final_sweep`` from one
 state in both packages (the port's run, carried into the JAX package):
 the swept point counts agree within 1% (detection agrees within 1% of the
 keypoints, tests/test_torch_sift.py) and every swept point is finite.
+``estimate_pair`` on the plane's pair (0, 1), one set of features in both
+packages and the JAX package's own 8-point and homography samples injected
+(ROADMAP C8): the same E inlier count, the same count of matches within the
+homography threshold of each package's H, and the same relative pose (the
+same planar twin) within 0.1 deg.
 """
 
 import numpy as np
@@ -16,12 +21,18 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_parity import J, N, T
+from _torch_parity import J, N, T, rotation_angle_deg
+
+import jax
 
 from sfm_mvs_tpu.models import map_store as jms
 from sfm_mvs_tpu.models import tracks as jtracks
+from sfm_mvs_tpu.ops import matching as jmatching
+from sfm_mvs_tpu.ops import ransac as jransac
+from sfm_mvs_tpu.ops import sift as jsift
 from sfm_mvs_tpu.utils import config as jconfig
 from sfm_mvs_tpu_torch.models import ba, tracks
+from sfm_mvs_tpu_torch.ops import homography, matching, sift
 from sfm_mvs_tpu_torch.utils import config, convert
 from sfm_mvs_tpu_torch.utils.synthetic import render_plane_sequence
 
@@ -87,3 +98,35 @@ def test_final_sweep_matches_jax(plane):
     assert abs((n - n0) - (nj - n0)) <= 0.01 * (nj - n0)
     assert torch.isfinite(swept.points[swept.point_valid]).all()
     assert int(swept.cam_valid.sum()) == 4
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_estimate_pair_same_twin_on_jax_samples(plane, seed):
+    imgs, cfg, jcfg, _, _ = plane
+    K = torch.as_tensor(cfg.intrinsic_matrix())
+    f0, f1 = (sift.detect_and_compute(T(im), cfg.frontend) for im in imgs[:2])
+    jf0, jf1 = (jsift.Features(*[J(a) for a in convert.to_numpy(f)]) for f in (f0, f1))
+    key = jax.random.PRNGKey(seed)
+    ref = jtracks.estimate_pair(key, jf0, jf1, J(K), jcfg)
+    # The draws of JAX's estimate_pair: its key split into an E and an H
+    # stream, each split again inside ransac_essential / ransac_homography.
+    m = jmatching.match_with_config(jf0.desc, jf1.desc, jf0.valid, jf1.valid, jcfg.frontend)
+    count, n = jnp.sum(m.valid), m.valid.shape[0]
+    ke, kh = jax.random.split(key)
+    rc = jcfg.ransac
+    idx8 = T(jransac._sample_indices(jax.random.split(ke)[0], rc.essential_iters, 8, count, n))
+    idx4 = T(jransac._sample_indices(jax.random.split(kh)[0], rc.homography_iters, 4, count, n))
+    ours = tracks.estimate_pair(None, f0, f1, K, cfg, sample_idx=idx8, sample_idx_h=idx4)
+
+    assert int(ours.num_inliers) == int(ref.num_inliers) > 50
+    tm = matching.match_with_config(f0.desc, f1.desc, f0.valid, f1.valid, cfg.frontend)
+    uv0, uv1, mvalid = matching.gather_match_points(f0.xy, f1.xy, tm)
+
+    def h_inliers(H):
+        err = homography.transfer_error(T(H), uv0, uv1)
+        return int(((err < cfg.ransac.homography_threshold_px) & mvalid).sum())
+
+    assert h_inliers(ours.H) == h_inliers(ref.H) > 50
+    assert rotation_angle_deg(ours.R, ref.R) < 0.1
+    cos_t = float(np.dot(N(ours.t), N(ref.t)) / np.linalg.norm(N(ours.t)) / np.linalg.norm(N(ref.t)))
+    assert np.degrees(np.arccos(min(cos_t, 1.0))) < 0.1
