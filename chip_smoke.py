@@ -15,7 +15,11 @@ Phases, each printing one line (any failure exits non-zero):
    cross term (the library yardstick) timed at 4096 x 4096 x 128 in turns,
    launch-amortized (50 back-to-back calls between CUDA events, median of 5
    windows), beside the FP32-FMA bound; the device ops of one call counted
-   under torch.profiler (at most 6).
+   under torch.profiler (at most 6). Then the batched launch: 8 SIFT pairs
+   (frames (i, i+1)) in one ``knn_match_cuda_batch`` call, bitwise equal to
+   8 single launches and within the same margins of the plain batched
+   version, timed per pair beside a single launch, ``torch.bmm`` of the
+   batched cross term and the bound for 8 pairs.
 4. main path: ``IncrementalSfM(cfg, device="cuda").run(images)`` on the
    57-frame 968x648 staircase scene at bench.py's frontend settings, BA off;
    checks registration, ATE and reprojection error against ground truth,
@@ -75,18 +79,38 @@ Phases, each printing one line (any failure exits non-zero):
 14. split-phase stitching at benchmarks/large_scene.py's width: 250 frames
     at 480x360 over 145 degrees registered by ``IncrementalSfM`` with
     windowed BA, then ``covisibility_matrix``, ``retrieve_stitch_pairs``,
-    chunks of 32 pairs through ``stitch_candidates_batch`` (K1 per live pair,
-    one batched E-RANSAC) and ``apply_stitch_batch`` both ways, then the
-    finalize (compact, shrink, 2 robust BA rounds each followed by a
-    re-apply of every candidate, ``finalize_map``); checks 250/250, ATE <
-    0.05, injections > 0, a re-apply that injects nothing, a final cost
-    below 1 px^2, and K1 launches = 249 + the live pairs.
-15. the last line: {"ok": true, "device": {...}}.
+    chunks of 32 pairs through ``stitch_candidates_batch`` (one batched K1
+    launch and one batched E-RANSAC per chunk) and ``apply_stitch_batch``
+    both ways, then the finalize (compact, shrink, 2 robust BA rounds each
+    followed by a re-apply of every candidate, ``finalize_map``); checks
+    250/250, ATE < 0.05, injections > 0, a re-apply that injects nothing, a
+    final cost below 1 px^2, 249 single K1 launches in registration and one
+    batched launch of 32 pair rows per stitch chunk.
+15. the distributed paths (``sfm_mvs_tpu_torch/parallel``) at full width:
+    phase 5's map, phase 14's registration map and phase 9's finalized map
+    are saved with ``utils/checkpoint.save_map`` and 2 gloo ranks sharing
+    cuda:0 are spawned (torch.multiprocessing), then 1 NCCL rank. Each runs
+    ``bundle_adjust_map_sharded`` (8 iterations, 15 CG) against the
+    single-process ``bundle_adjust_map`` at tests/test_parallel.py's
+    tolerances (costs rel 1e-5 / 1e-2, poses 1e-4, points 1e-3), replicas
+    bitwise equal; the gloo ranks also run ``bundle_adjust_window_sharded``
+    at large_scene.py's window (32 cameras, 16384 points, 6 iterations)
+    against ``bundle_adjust_window``, ``detect_batch_sharded`` on the 57
+    frames in chunks of 8 (xy 1e-4, valid equal to per-frame detection),
+    ``match_pairs_sharded`` over the 56 adjacent pairs (each rank's 28 in
+    one batched K1 launch; idx1 and valid equal to single launches), the
+    sharded lookup (exact) and nearest-projected query (d2 rel 1e-5) on
+    phase 5's map, and ``densify_map(mesh=)`` at phase 9's settings (point
+    count within max(5, n/100) of phase 9's, rounded-point overlap > 0.98,
+    the same cloud on both ranks, phase 9's depth gates). Prints wall and
+    per-LM-iteration times and each rank's time for one all_reduce of 384
+    floats (a CG step's), which are of ranks sharing one card.
+16. the last line: {"ok": true, "device": {...}}.
 
 The scenes of phases 11 and 14 are rendered on the host by one spawned
 worker process, started after the build, while phases 3-10 drive the card.
 
-``--profile`` adds, after phase 14, bench.py's stage breakdown with
+``--profile`` adds, after phase 15, bench.py's stage breakdown with
 torch.profiler over two warm frames and one LM iteration, torch.profiler
 over one ``mvs._plane_sweep_batch`` call of 4 reference frames, and a KLT
 frame's stage breakdown with torch.profiler over one warm ``klt_step``
@@ -281,13 +305,14 @@ def _check_k1_case(case, matching, matching_cuda):
     return err
 
 
-def k1_bound_ms(n0, n1, d):
-    """(ms, bound_by): the least time of one call on an H100 SXM: the cross
-    term's 2 n0 n1 d FP32 operations at 67 TFLOP/s (CUDA cores; the tensor
-    cores have no FP32 mode), or its bytes (descriptors and masks read
-    once; idx0, idx1 and valid written once) at 3.35 TB/s."""
-    ops_ms = 2.0 * n0 * n1 * d / 67e12 * 1e3
-    bytes_ms = ((n0 + n1) * (4 * d + 1) + n0 * 9) / 3.35e12 * 1e3
+def k1_bound_ms(n0, n1, d, batch=1):
+    """(ms, bound_by): the least time of one call for `batch` pairs on an
+    H100 SXM: the cross terms' 2 n0 n1 d FP32 operations per pair at 67
+    TFLOP/s (CUDA cores; the tensor cores have no FP32 mode), or their
+    bytes (descriptors and masks read once; idx0, idx1 and valid written
+    once) at 3.35 TB/s."""
+    ops_ms = batch * 2.0 * n0 * n1 * d / 67e12 * 1e3
+    bytes_ms = batch * ((n0 + n1) * (4 * d + 1) + n0 * 9) / 3.35e12 * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -336,6 +361,80 @@ def phase_k1(real_pair):
     return dict(max_abs_err=worst, ms=ms["kernel"], plain_ms=ms["plain"],
                 library_ms=ms["library"], bound_ms=bound, bound_by=bound_by,
                 bound_share=bound / ms["kernel"], device_ops_per_call=n_ops)
+
+
+def sift_pairs(imgs, cfg, n_pairs):
+    """The batched case's inputs: real SIFT descriptors of frames 0..n_pairs
+    as the stacked adjacent pairs (i, i + 1), each (B, 4096, ...)."""
+    from sfm_mvs_tpu_torch.ops import sift
+
+    fs = [sift.detect_and_compute(torch.as_tensor(imgs[i], device=DEVICE), cfg.frontend)
+          for i in range(n_pairs + 1)]
+    desc = torch.stack([f.desc for f in fs])
+    valid = torch.stack([f.valid for f in fs])
+    return desc[:-1].contiguous(), desc[1:].contiguous(), valid[:-1].contiguous(), \
+        valid[1:].contiguous()
+
+
+def phase_k1_batch(pairs, ratio):
+    """K1's batched launch (B pairs in one launch) against B single launches
+    (bitwise: d1, j1, d2, idx0, idx1, valid) and against the plain batched
+    version (phase 3's margins), then timed per pair in turns beside one
+    single launch and ``torch.bmm`` of the batched cross term."""
+    from sfm_mvs_tpu_torch.ops import matching, matching_cuda
+
+    d0, d1, v0, v1 = pairs
+    B, n0, dd = d0.shape
+    n1 = d1.shape[1]
+    kd1, kj1, kd2 = matching_cuda.knn2_raw(d0, d1, v1)
+    km = matching_cuda.knn_match_cuda_batch(d0, d1, v0, v1, ratio=ratio)
+    n_diff = 0
+    for b in range(B):
+        sd1, sj1, sd2 = matching_cuda.knn2_raw(d0[b], d1[b], v1[b])
+        sm = matching_cuda.knn_match_cuda(d0[b], d1[b], v0[b], v1[b], ratio=ratio)
+        n_diff += sum(not torch.equal(x, y) for x, y in (
+            (kd1[b], sd1), (kj1[b], sj1), (kd2[b], sd2), (km.idx0[b], sm.idx0),
+            (km.idx1[b], sm.idx1), (km.valid[b], sm.valid)))
+    pd1, pj1, pd2 = matching.top2(matching.distance_matrix(d0, d1, v1))
+    pm = matching.knn_match(d0, d1, v0, v1, ratio=ratio)
+    torch.cuda.synchronize()
+    q = v0
+    err = max(float((kd1 - pd1)[q].abs().max()), float((kd2 - pd2)[q].abs().max()))
+    decided = (pd2 - pd1) > MARGIN
+    clear = (pd1 - (ratio * ratio) * pd2).abs() > MARGIN
+    n_idx = int((q & decided & (kj1 != pj1.to(torch.int32))).sum())
+    n_val = int((clear & (km.valid != pm.valid)).sum())
+    n_inside = int((q & (~decided | ~clear)).sum())
+    log(f"[k1] batched {B} x {n0}x{n1}x{dd} (SIFT pairs (i, i+1), i < {B}): against {B} single "
+        f"launches {n_diff} differing outputs of {6 * B} (bitwise); against the plain batched "
+        f"version max|dd|={err:.3g}, idx_mismatch={n_idx} valid_mismatch={n_val} "
+        f"inside_margin={n_inside} matches={int(pm.valid.sum())}/{B * n0}")
+    if n_diff or not err <= DIST_ATOL or n_idx or n_val or bool((km.valid & ~q).any()):
+        raise AssertionError("K1's batched launch disagrees with single launches or the plain "
+                             "version")
+
+    fns = {"plain": lambda: matching.knn_match(d0, d1, v0, v1, ratio=ratio),
+           "batched": lambda: matching_cuda.knn_match_cuda_batch(d0, d1, v0, v1, ratio=ratio),
+           "library": lambda: torch.bmm(d0, d1.transpose(1, 2)),
+           "single": lambda: matching_cuda.knn_match_cuda(d0[0], d1[0], v0[0], v1[0],
+                                                          ratio=ratio)}
+    windows = {k: [] for k in fns}
+    turns = []
+    for key in ("plain", "batched", "library", "single", "batched", "plain"):
+        w = _window_ms(fns[key], calls=20 if key != "single" else 50)
+        windows[key] += w
+        turns.append(f"{key} {statistics.median(w):.4f}")
+    ms = {k: statistics.median(v) for k, v in windows.items()}
+    bound, bound_by = k1_bound_ms(n0, n1, dd, batch=B)
+    log(f"[k1] batched time (ms per call of {B} pairs, CUDA events, median of 5 windows per "
+        f"turn; single: one pair): " + ", ".join(turns))
+    log(f"[k1] per pair: batched {ms['batched'] / B:.4f} ms, single launch {ms['single']:.4f} ms, "
+        f"torch.bmm cross term {ms['library'] / B:.4f} ms, plain {ms['plain'] / B:.4f} ms; "
+        f"bound {bound / B:.4f} ms ({bound_by}), share {bound / ms['batched']:.3f}")
+    return dict(max_abs_err=err, ms=ms["batched"], plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound, bound_by=bound_by,
+                bound_share=bound / ms["batched"], pairs_per_call=B,
+                single_ms=ms["single"])
 
 
 SCENE = dict(num_cameras=57, image_size=(968, 648), focal=1200.0, radius=9.0,
@@ -1209,6 +1308,7 @@ def phase_stitch(renders):
     torch.cuda.synchronize()
     reg_s = time.perf_counter() - t0
     reg_launches = matching_cuda.launches
+    reg_map = state
     n_cams, ate_reg, _ = _pose_quality(state, Rt_gt)
     if n_cams != F:
         raise AssertionError(f"stitch scene: registered {n_cams}/{F} cameras")
@@ -1256,6 +1356,7 @@ def phase_stitch(renders):
     torch.cuda.synchronize()
     stitch_s = time.perf_counter() - t0
     stitch_launches = matching_cuda.launches
+    batches, rows = matching_cuda.batch_launches, matching_cuda.batch_pairs
 
     # The finalize: compact, shrink, robust BA <-> re-apply, polish.
     t0 = time.perf_counter()
@@ -1293,8 +1394,9 @@ def phase_stitch(renders):
         f"cameras, ATE {ate_reg:.6f}, {reg_s:.1f} s, K1 launches {reg_launches}")
     log(f"[stitch] covisibility + retrieval: {len(pairs)} pairs in "
         f"{len(cache)} chunks of <= {STITCH_BATCH}; injected {injected} observations; "
-        f"re-apply right after {reapply_first}; {stitch_s:.2f} s; K1 launches {stitch_launches} "
-        f"(expected {len(pairs)}, one per live pair)")
+        f"re-apply right after {reapply_first}; {stitch_s:.2f} s; K1 batched launches {batches} "
+        f"(expected {len(cache)}, one per chunk) matching {rows} pair rows ({len(pairs)} live "
+        f"+ pads), single launches {stitch_launches} (expected 0)")
     log(f"[stitch] finalize: capacity {cap} ({live} live), robust costs "
         f"{robust[0]:.4f} / {robust[1]:.4f} px^2, re-applied {reinjected}, final cost "
         f"{final_cost:.4f} px^2, cameras {n_fin}/{F}, ATE {ate:.6f} (v5e record 0.02425, "
@@ -1309,14 +1411,35 @@ def phase_stitch(renders):
         raise AssertionError(f"stitch: re-applying the first chunk injected {reapply_first}")
     if not final_cost < 1.0:
         raise AssertionError(f"stitch: final cost {final_cost} >= 1 px^2")
-    if stitch_launches != len(pairs):
-        raise AssertionError(f"K1 launched {stitch_launches} times in the stitch, expected "
-                             f"{len(pairs)}")
-    return reg_launches + stitch_launches
+    if (stitch_launches, batches, rows) != (0, len(cache), STITCH_BATCH * len(cache)):
+        raise AssertionError(f"K1 in the stitch: {stitch_launches} single and {batches} batched "
+                             f"launches over {rows} rows, expected 0, {len(cache)} and "
+                             f"{STITCH_BATCH * len(cache)}")
+    return reg_launches, batches, reg_map
 
 
 MVS_RECORD = dict(rel_rms=0.01421, median=0.00299, under_1pct=0.8919, coverage_gt=0.8008,
                   points=5353610)  # artifacts/MVS_r05.json (v5e; quality only)
+# benchmarks/mvs_full.py's densify_map settings (the GT harness).
+MVS_SETTINGS = dict(num_depths=64, stride=2, geo_rel_tol=0.02, edge_trim_radius=6,
+                    geo_min_consistent=2, free_space_rel=0.05, min_conf=0.5)
+
+
+def depth_gates(depth, gt_depths, s_align):
+    """(rel-RMS, median, share under 1%, coverage of GT-valid pixels) of the
+    filtered depth maps [(frame, depth, valid)] against the renderer's
+    depths (GT > 0.1), after scaling by the Umeyama scale s_align."""
+    rels, covs_gt = [], []
+    for r, d, valid in depth:
+        d_est = d * s_align
+        d_gt = gt_depths[r]
+        gt_ok = d_gt > 0.1
+        ok = valid & gt_ok
+        covs_gt.append(ok.sum() / max(gt_ok.sum(), 1))
+        rels.append(np.abs(d_est[ok] - d_gt[ok]) / d_gt[ok])
+    rel = np.concatenate(rels)
+    return (float(np.sqrt(np.mean(rel ** 2))), float(np.median(rel)), float(np.mean(rel < 0.01)),
+            float(np.mean(covs_gt)))
 
 
 def phase_mvs(stack8, state, Rt_gt, gt_depths):
@@ -1334,21 +1457,10 @@ def phase_mvs(stack8, state, Rt_gt, gt_depths):
     torch.cuda.reset_peak_memory_stats()
     with StageClock([(mvs, "_depth_ranges", "pass 1"), (mvs, "_plane_sweep_batch", "pass 1"),
                      (mvs, "_fuse_batch", "pass 2")]) as clock:
-        pts, _, dms = mvs.densify_map(
-            grays, state, num_depths=64, stride=2, images_bgr=bgrs, geo_rel_tol=0.02,
-            edge_trim_radius=6, geo_min_consistent=2, free_space_rel=0.05, min_conf=0.5,
-            return_depth_maps=True)
-    rels, covs_gt = [], []
-    for r, dm in dms.items():
-        d_est = dm.depth.cpu().numpy() * s_align
-        d_gt = gt_depths[r]
-        gt_ok = d_gt > 0.1
-        ok = dm.valid.cpu().numpy() & gt_ok
-        covs_gt.append(ok.sum() / max(gt_ok.sum(), 1))
-        rels.append(np.abs(d_est[ok] - d_gt[ok]) / d_gt[ok])
-    rel = np.concatenate(rels)
-    rms, med = float(np.sqrt(np.mean(rel ** 2))), float(np.median(rel))
-    under, cov = float(np.mean(rel < 0.01)), float(np.mean(covs_gt))
+        pts, _, dms = mvs.densify_map(grays, state, **MVS_SETTINGS, images_bgr=bgrs,
+                                      return_depth_maps=True)
+    depth = [(r, dm.depth.cpu().numpy(), dm.valid.cpu().numpy()) for r, dm in dms.items()]
+    rms, med, under, cov = depth_gates(depth, gt_depths, s_align)
     rec = MVS_RECORD
     log(f"[mvs] depth rel-RMS {rms:.5f} (v5e record: {rec['rel_rms']})  median {med:.5f} "
         f"(v5e record: {rec['median']})  under 1% {under:.4f} (v5e record: {rec['under_1pct']})")
@@ -1363,7 +1475,7 @@ def phase_mvs(stack8, state, Rt_gt, gt_depths):
         raise AssertionError(f"coverage of GT-valid pixels {cov} <= 0.65")
     if not np.isfinite(pts).all():
         raise AssertionError("non-finite dense points")
-    return state
+    return state, pts, s_align
 
 
 def profile_sweep(stack8, state):
@@ -1512,6 +1624,306 @@ def profile_klt(imgs, cfg, n_frames=12):
     log(summary)
 
 
+DIST_DIR = "chiprun_out/dist"
+WINDOW = dict(window_cams=32, window_points=16384, freeze_cams=8, max_iterations=6,
+              cg_iters=12)  # benchmarks/large_scene.py:188-195
+DETECT_CHUNK = 8
+N_QUERIES = 4096
+
+
+def _ba_record(state, stats, wall_s):
+    return {"poses": state.poses.cpu().numpy(), "points": state.points.cpu().numpy(),
+            "stats": [float(v) for v in stats], "wall_s": wall_s}
+
+
+def _timed(fn):
+    """fn() twice (the first warms the allocator and the group); returns
+    (the second call's result, its synchronized wall seconds)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _rank_job(rank, world, backend, port):
+    """One rank of phase 15, spawned: joins the group on cuda:0 and runs
+    the port's sharded paths on the maps phase 15 saved. With 2 gloo ranks:
+    map BA, window BA, batched detection and matching, the map queries and
+    MVS; with 1 NCCL rank: the map BA. Writes its results to DIST_DIR."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    from sfm_mvs_tpu_torch.models import mvs
+    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.parallel import (consistency, distributed_ba, frontend,
+                                            mesh as meshlib, sharded_map)
+    from sfm_mvs_tpu_torch.utils import checkpoint
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    m = meshlib.make_mesh()
+    out = {"rank": rank, "size": m.size, "backend": m.backend}
+    # One CG step's collective: an all_reduce of (C, 6) floats, C = 64.
+    x = torch.zeros(64 * 6, device=DEVICE)
+    for _ in range(5):
+        meshlib.all_reduce(x, m)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(100):
+        meshlib.all_reduce(x, m)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t) * 10.0
+    map57 = checkpoint.load_map(f"{DIST_DIR}/map57.npz", device=DEVICE)
+    (st, stats), wall = _timed(lambda: distributed_ba.bundle_adjust_map_sharded(
+        map57, m, max_iterations=8, cg_iters=15))
+    consistency.assert_replicated(st.poses, m, "poses")
+    consistency.assert_replicated(st.points, m, "points")
+    out["map_ba"] = _ba_record(st, stats, wall)
+    out["map_fingerprint"] = consistency.state_fingerprint(st)
+    if backend == "nccl":
+        with open(f"{DIST_DIR}/{backend}_{rank}.pkl", "wb") as fh:
+            pickle.dump(out, fh)
+        dist.destroy_process_group()
+        return
+
+    map250 = checkpoint.load_map(f"{DIST_DIR}/map250.npz", device=DEVICE)
+    (st, stats), wall = _timed(lambda: distributed_ba.bundle_adjust_window_sharded(
+        map250, m, **WINDOW))
+    consistency.assert_replicated(st.poses, m, "window poses")
+    out["window_ba"] = _ba_record(st, stats, wall)
+    del map250, st
+
+    # The front end: 57 frames in padded chunks of 8, then the 56 adjacent
+    # pairs, each rank's 28 in one batched K1 launch.
+    stack8 = torch.as_tensor(np.load(f"{DIST_DIR}/frames.npy"), device=DEVICE)
+    frames = stack8.float() / 255.0
+    cfg = main_config().frontend
+    n = frames.shape[0]
+    matching_cuda.reset_launches()
+    t = time.perf_counter()
+    parts = []
+    for s in range(0, n, DETECT_CHUNK):
+        idx = [min(i, n - 1) for i in range(s, s + DETECT_CHUNK)]
+        fb = frontend.detect_batch_sharded(frames[idx], cfg, m)
+        parts.append([f[:min(DETECT_CHUNK, n - s)] for f in fb])
+    feats = type(fb)(*[torch.cat(col) for col in zip(*parts)])
+    pairs = torch.arange(n - 1, device=DEVICE)
+    mt = frontend.match_pairs_sharded(feats, pairs, pairs + 1, m, cfg)
+    torch.cuda.synchronize()
+    out["frontend_s"] = time.perf_counter() - t
+    out["launches"] = (matching_cuda.launches, matching_cuda.batch_launches,
+                       matching_cuda.batch_pairs)
+    out["detect"] = (feats.xy.cpu().numpy(), feats.valid.cpu().numpy())
+    # The same features through single launches, one pair at a time.
+    diff = 0
+    for i in range(n - 1):
+        one = matching_cuda.knn_match_cuda(feats.desc[i], feats.desc[i + 1], feats.valid[i],
+                                           feats.valid[i + 1], ratio=cfg.lowe_ratio)
+        diff += int((one.idx1 != mt.idx1[i]).sum() + (one.valid != mt.valid[i]).sum())
+    out["match"] = (diff, int(mt.valid.sum()), tuple(mt.idx1.shape))
+    del frames, feats, mt
+
+    # Map queries against phase 5's map, blocked over the ranks.
+    blk = meshlib.shard_map_state(map57, m)
+    P = map57.points.shape[0]
+    tids = torch.arange(-3, P + 3, device=DEVICE, dtype=torch.int32)
+    X, ok = sharded_map.lookup_points_sharded(blk.points, blk.point_valid, tids, m)
+    inside = (tids >= 0) & (tids < P)
+    safe = torch.clamp(tids, 0, P - 1).long()
+    exp_X = torch.where(inside[:, None], map57.points[safe], torch.zeros(()).to(DEVICE))
+    exp_ok = inside & map57.point_valid[safe]
+    out["lookup"] = (int((X != exp_X).any(1).sum()), int((ok != exp_ok).sum()), int(ok.sum()))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(15)
+    W, H = SCENE["image_size"]
+    uv_q = torch.rand((N_QUERIES, 2), generator=gen, device=DEVICE) * torch.tensor(
+        [W, H], dtype=torch.float32, device=DEVICE)
+    pose = map57.poses[int(map57.num_cams) // 2]
+    d2_s, z_s = sharded_map.nearest_projected_sharded(blk.points, blk.point_valid, pose,
+                                                      map57.K, uv_q, m)
+    from sfm_mvs_tpu_torch.ops import projection
+
+    uv_map, depth = projection.project_depth(map57.points, pose, map57.K)
+    d2 = sharded_map.squared_distances(uv_q, uv_map)
+    d2 = torch.where((map57.point_valid & (depth > 0))[None, :], d2,
+                     torch.full_like(d2, float("inf")))
+    dmin, j = d2.min(1)
+    unique = (d2 == dmin[:, None]).sum(1) == 1
+    rel = ((d2_s - dmin).abs() / dmin.abs().clamp_min(1e-30)).max()
+    out["nearest"] = (float(rel), int((z_s != depth[j])[unique].sum()), int(unique.sum()))
+
+    # MVS at phase 9's settings, each rank sweeping its slots of each batch.
+    mvs_map = checkpoint.load_map(f"{DIST_DIR}/mvs_map.npz", device=DEVICE)
+    k = int(mvs_map.cam_valid.sum())
+    grays = [gray_of(stack8, i) for i in range(k)]
+    bgrs = [bgr_of(stack8, i) for i in range(k)]
+    t = time.perf_counter()
+    pts, _, dms = mvs.densify_map(grays, mvs_map, **MVS_SETTINGS, images_bgr=bgrs,
+                                  return_depth_maps=True, mesh=m)
+    torch.cuda.synchronize()
+    out["mvs_s"] = time.perf_counter() - t
+    out["mvs_points"] = len(pts)
+    out["mvs_fingerprint"] = consistency.state_fingerprint(pts)
+    if rank == 0:
+        np.save(f"{DIST_DIR}/mvs_pts.npy", pts)
+        np.savez(f"{DIST_DIR}/mvs_depth.npz", frames=np.array(sorted(dms)),
+                 depth=np.stack([dms[r].depth.cpu().numpy() for r in sorted(dms)]),
+                 valid=np.stack([dms[r].valid.cpu().numpy() for r in sorted(dms)]))
+    with open(f"{DIST_DIR}/{backend}_{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(world, backend):
+    """Runs _rank_job at `world` ranks (torch.multiprocessing, spawn); a
+    rank that fails raises here. Returns each rank's results."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_rank_job, args=(world, backend, port), nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(f"{DIST_DIR}/{backend}_{r}.pkl", "rb") as fh:
+            out.append(pickle.load(fh))
+    return out
+
+
+def _rounded_rows(pts):
+    """The set of points rounded to 3 decimals (tests/test_mvs.py's keys), as
+    one sorted array of 12-byte rows."""
+    r = np.ascontiguousarray(np.round(pts, 3).astype(np.float32))
+    return np.unique(r.view(np.dtype((np.void, 12))).ravel())
+
+
+def _ba_gates(name, rec, ref_state, ref_stats):
+    """test_parallel.py:83-101's gates of one rank's BA against the
+    single-process solve; returns the printout."""
+    s0, s1 = rec["stats"][:2]
+    dpose = float(np.abs(rec["poses"] - ref_state.poses.cpu().numpy()).max())
+    dpts = float(np.abs(rec["points"] - ref_state.points.cpu().numpy()).max())
+    i0, i1 = float(ref_stats.initial_cost), float(ref_stats.final_cost)
+    ok = (abs(s0 - i0) <= 1e-5 * abs(i0) and abs(s1 - i1) <= 1e-2 * abs(i1) + 1e-6
+          and dpose <= 1e-4 and dpts <= 1e-3)
+    text = (f"{name}: cost {s0:.6f} -> {s1:.6f} px^2 (single process {i0:.6f} -> {i1:.6f}; "
+            f"final bitwise equal: {s1 == i1}), max |d pose| {dpose:.3g}, max |d point| "
+            f"{dpts:.3g}, {int(rec['stats'][2])} iterations in {rec['wall_s'] * 1e3:.1f} ms "
+            f"({rec['wall_s'] * 1e3 / max(rec['stats'][2], 1):.2f} ms per LM iteration)")
+    if not ok:
+        raise AssertionError(f"sharded BA outside test_parallel.py's tolerances: {text}")
+    return text
+
+
+def phase_distributed(bench_map, mvs_state, s_align, mvs_pts, stitch_map, stack8, gt_depths):
+    """Phase 15: the port's parallel/ paths at full width on the card, 2
+    gloo ranks sharing cuda:0 and 1 NCCL rank, against single-process runs.
+    Returns the ranks' batched K1 launches."""
+    from sfm_mvs_tpu_torch.models import ba
+    from sfm_mvs_tpu_torch.ops import sift
+    from sfm_mvs_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    try:
+        t = time.perf_counter()
+        checkpoint.save_map(f"{DIST_DIR}/map57.npz", bench_map)
+        checkpoint.save_map(f"{DIST_DIR}/map250.npz", stitch_map)
+        checkpoint.save_map(f"{DIST_DIR}/mvs_map.npz", mvs_state)
+        np.save(f"{DIST_DIR}/frames.npy", stack8.cpu().numpy())
+        save_s = time.perf_counter() - t
+
+        # Single-process references, before the ranks share the card.
+        (ref_map, ref_stats), map_s = _timed(
+            lambda: ba.bundle_adjust_map(bench_map, max_iterations=8, cg_iters=15))
+        (ref_win, ref_wstats), win_s = _timed(lambda: ba.bundle_adjust_window(stitch_map, **WINDOW))
+        cfg = main_config().frontend
+        n = stack8.shape[0]
+        per_frame = [sift.detect_and_compute(gray_of(stack8, i), cfg) for i in range(n)]
+        xy_ref = torch.stack([f.xy for f in per_frame]).cpu().numpy()
+        valid_ref = torch.stack([f.valid for f in per_frame]).cpu().numpy()
+        del per_frame
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        gloo = _spawn_ranks(2, "gloo")
+        gloo_s = time.perf_counter() - t
+        t = time.perf_counter()
+        nccl = _spawn_ranks(1, "nccl")
+        nccl_s = time.perf_counter() - t
+        log(f"[dist] saved the maps and frames in {save_s:.1f} s; 2 gloo ranks on cuda:0 "
+            f"{gloo_s:.1f} s, 1 NCCL rank {nccl_s:.1f} s (spawn, group and loads included); gloo "
+            f"carried every collective's CUDA tensors itself (no host staging)")
+        iters = max(int(ref_stats.iterations), 1)
+        log(f"[dist] single process: map BA {map_s * 1e3:.1f} ms ({map_s * 1e3 / iters:.2f} ms "
+            f"per LM iteration), window BA {win_s * 1e3:.1f} ms")
+        for r in gloo + nccl:
+            log("[dist] " + _ba_gates(f"map BA, {r['backend']} rank {r['rank']} of {r['size']}",
+                                      r["map_ba"], ref_map, ref_stats)
+                + f"; one all_reduce of 384 floats {r['allreduce_ms']:.3f} ms")
+        for r in gloo:
+            log("[dist] " + _ba_gates(f"window BA (32 cams, 16384 points), gloo rank {r['rank']}",
+                                      r["window_ba"], ref_win, ref_wstats))
+        log(f"[dist] state_fingerprint after BA: rank 0 {gloo[0]['map_fingerprint']}, rank 1 "
+            f"{gloo[1]['map_fingerprint']}; poses and points replicated bitwise "
+            f"(assert_replicated on each rank)")
+        if gloo[0]["map_fingerprint"] != gloo[1]["map_fingerprint"]:
+            raise AssertionError("the ranks' maps after BA differ (state_fingerprint)")
+
+        for r in gloo:
+            xy, valid = r["detect"]
+            dxy = float(np.abs(np.where(valid_ref[..., None], xy - xy_ref, 0)).max())
+            n_valid = int((valid != valid_ref).sum())
+            single, batched, rows = r["launches"]
+            diff, n_match, shape = r["match"]
+            log(f"[dist] front end, rank {r['rank']}: detect_batch_sharded ({DETECT_CHUNK}-frame "
+                f"chunks) max |d xy| {dxy:.3g}, valid mismatches {n_valid}; match_pairs_sharded "
+                f"{shape}: {n_match} matches, {diff} idx1/valid differences from single launches; "
+                f"K1 batched launches {batched} over {rows} pairs, single {single}; "
+                f"{r['frontend_s']:.2f} s")
+            if not dxy <= 1e-4 or n_valid or diff or (single, batched, rows) != (0, 1, (n - 1) // 2):
+                raise AssertionError(f"front end at rank {r['rank']} failed its gates")
+            miss_x, miss_ok, n_ok = r["lookup"]
+            rel, zdiff, n_unique = r["nearest"]
+            log(f"[dist] map queries, rank {r['rank']}: lookup of "
+                f"{bench_map.points.shape[0] + 6} ids ({n_ok} valid): {miss_x} X and {miss_ok} ok "
+                f"mismatches; nearest of {N_QUERIES} pixels: max rel d2 {rel:.3g}, depth "
+                f"mismatches {zdiff} where the argmin is unique ({n_unique})")
+            if miss_x or miss_ok or not rel <= 1e-5 or zdiff:
+                raise AssertionError(f"map queries at rank {r['rank']} failed their gates")
+
+        pts = np.load(f"{DIST_DIR}/mvs_pts.npy")
+        dz = np.load(f"{DIST_DIR}/mvs_depth.npz")
+        rms, med, under, cov = depth_gates(zip(dz["frames"], dz["depth"], dz["valid"]),
+                                           gt_depths, s_align)
+        a, b = _rounded_rows(pts), _rounded_rows(mvs_pts)
+        overlap = len(np.intersect1d(a, b, assume_unique=True)) / max(len(b), 1)
+        n1 = len(mvs_pts)
+        same = gloo[0]["mvs_fingerprint"] == gloo[1]["mvs_fingerprint"]
+        log(f"[dist] MVS, 2 ranks: {len(pts)} points (unsharded {n1}), rounded-point overlap "
+            f"{overlap:.5f}, the same cloud on both ranks: {same}; depth rel-RMS {rms:.5f} median "
+            f"{med:.5f} under 1% {under:.4f} coverage {cov:.4f}; {gloo[0]['mvs_s']:.1f} / "
+            f"{gloo[1]['mvs_s']:.1f} s")
+        log("[dist] times are of 2 ranks sharing one card over gloo: not a scaling figure")
+        if abs(len(pts) - n1) > max(5, n1 // 100) or not overlap > 0.98 or not same:
+            raise AssertionError("sharded MVS outside tests/test_mvs.py's bounds")
+        if not med < 0.01 or not rms < 0.03 or not cov > 0.65:
+            raise AssertionError(f"sharded MVS depth median {med} / rel-RMS {rms} / coverage {cov}")
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    log(f"[dist] phase 15 {time.perf_counter() - t_phase:.1f} s")
+    return sum(r["launches"][1] for r in gloo)
+
+
 def microbench() -> None:
     """The card's limits behind K1's design (csrc/microbench.cu), each a
     kernel timed with CUDA events after a warm-up launch."""
@@ -1620,6 +2032,7 @@ def run_phases(argv, smi, t_start, build_s, registers, spills, renders) -> int:
     log(f"[scene] rendered {len(imgs)} frames {SCENE['image_size']} in {time.time() - t0:.1f}s")
     cfg = main_config()
     k1 = phase_k1(sift_pair(imgs, cfg))
+    k1_batch = phase_k1_batch(sift_pairs(imgs, cfg, 8), cfg.frontend.lowe_ratio)
     launches, ate_ba_off = phase_main(imgs, Rt_gt, cfg)
     n, bench_map = phase_bench(imgs, Rt_gt, cfg, ate_ba_off)
     launches += n
@@ -1629,11 +2042,15 @@ def run_phases(argv, smi, t_start, build_s, registers, spills, renders) -> int:
     launches += phase_cli(Rt_gt)
     launches += phase_loop_cli(Rt_gt)
     launches += phase_resume()
-    mvs_map = phase_mvs(stack8, bench_map, Rt_gt, gt_depths)
+    mvs_map, mvs_pts, s_align = phase_mvs(stack8, bench_map, Rt_gt, gt_depths)
     launches += phase_intrinsics(cfg, renders)
     launches += phase_global(cfg)
     launches += phase_klt(imgs, Rt_gt, cfg)
-    launches += phase_stitch(renders)
+    n, batch_launches, stitch_map = phase_stitch(renders)
+    launches += n
+    batch_launches += phase_distributed(bench_map, mvs_map, s_align, mvs_pts, stitch_map, stack8,
+                                        gt_depths)
+    del stitch_map, mvs_pts
     if "--profile" in argv:
         phase_profile(imgs, cfg)
         profile_sweep(stack8, mvs_map)
@@ -1644,6 +2061,10 @@ def run_phases(argv, smi, t_start, build_s, registers, spills, renders) -> int:
         "name": "knn2", "route": "cuda", "source": "sfm_mvs_tpu_torch/csrc/knn2.cu",
         "replaces": "sfm_mvs_tpu/ops/matching_pallas.py:55", "launches": launches,
         **k1, "registers": registers, "spills": spills,
+    }, {
+        "name": "knn2_batch", "route": "cuda", "source": "sfm_mvs_tpu_torch/csrc/knn2.cu",
+        "replaces": "sfm_mvs_tpu/ops/matching_pallas.py:55", "launches": batch_launches,
+        **k1_batch, "registers": registers, "spills": spills,
     }], "build_s": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

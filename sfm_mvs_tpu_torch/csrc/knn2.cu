@@ -64,6 +64,14 @@
 //
 // Ragged edges: query rows past N0 and train columns past N1 are copied as
 // zeros (cp.async's zero-fill), never stored and never folded.
+//
+// Batches: one launch matches B pairs of the same shape (the JAX package
+// vmaps its kernel over pairs). Pair b is blockIdx.z of the tile kernel and
+// blockIdx.y of the merge kernel; every array is B consecutive per-pair
+// blocks, and each kernel first moves its pointers to pair b's block. A
+// pair's blocks then compute exactly what a launch of that pair alone does,
+// so each pair's outputs equal its single launch's bit for bit (the split
+// count, which plan_splits now picks for B x row tiles, changes no bit).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -146,6 +154,18 @@ knn2_tile_kernel(const float* __restrict__ q, const float* __restrict__ qsq,
                  const uint8_t* __restrict__ tvalid, int n0, int n1, int d,
                  int tiles_per_split, float* __restrict__ part_b1,
                  float* __restrict__ part_b2, int* __restrict__ part_j) {
+  {  // pair blockIdx.z's blocks
+    const size_t b = blockIdx.z;
+    q += b * n0 * d;
+    qsq += b * n0;
+    t += b * n1 * d;
+    tsq += b * n1;
+    tvalid += b * n1;
+    const size_t po = b * n0 * gridDim.y;
+    part_b1 += po;
+    part_b2 += po;
+    part_j += po;
+  }
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // query tile, [k][row]
   float* ring = qs + MAXD * LDQ;                // STAGES train chunks, [k][col]
@@ -328,6 +348,19 @@ __global__ void knn2_merge_kernel(const float* __restrict__ part_b1,
                                   int* __restrict__ idx0, uint8_t* __restrict__ ok) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n0) return;
+  // Pair blockIdx.y's blocks.
+  const size_t b = blockIdx.y;
+  part_b1 += b * n0 * n_splits;
+  part_b2 += b * n0 * n_splits;
+  part_j += b * n0 * n_splits;
+  d1 += b * n0;
+  j1 += b * n0;
+  d2 += b * n0;
+  if (valid0 != nullptr) {
+    valid0 += b * n0;
+    idx0 += b * n0;
+    ok += b * n0;
+  }
   Top2 m;
   m.b1 = CUDART_INF_F;
   m.b2 = CUDART_INF_F;
@@ -353,9 +386,10 @@ __global__ void knn2_merge_kernel(const float* __restrict__ part_b1,
   }
 }
 
-// Launches both kernels on stream `s` of the current device `device`.
+// Launches both kernels for `batch` pairs on stream `s` of the current
+// device `device`.
 cudaError_t launch(const float* q, const float* qsq, const float* t, const float* tsq,
-                   const uint8_t* tvalid, int n0, int n1, int d, int n_splits,
+                   const uint8_t* tvalid, int batch, int n0, int n1, int d, int n_splits,
                    int tiles_per_split, float* part, float* d1, int* j1, float* d2,
                    const uint8_t* valid0, float r2, int* idx0, uint8_t* ok, int device,
                    cudaStream_t s) {
@@ -372,18 +406,18 @@ cudaError_t launch(const float* q, const float* qsq, const float* t, const float
     if (err != cudaSuccess) return err;
     if (device < 64) granted[device] = true;
   }
-  const size_t np = (size_t)n0 * n_splits;
+  const size_t np = (size_t)batch * n0 * n_splits;
   float* part_b1 = part;
   float* part_b2 = part + np;
   int* part_j = reinterpret_cast<int*>(part + 2 * np);
-  dim3 grid((n0 + BQ - 1) / BQ, n_splits);
+  dim3 grid((n0 + BQ - 1) / BQ, n_splits, batch);
   knn2_tile_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(q, qsq, t, tsq, tvalid, n0, n1, d,
                                                      tiles_per_split, part_b1, part_b2,
                                                      part_j);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  knn2_merge_kernel<<<(n0 + 127) / 128, 128, 0, s>>>(part_b1, part_b2, part_j, n0, n_splits,
-                                                     d1, j1, d2, valid0, r2, idx0, ok);
+  knn2_merge_kernel<<<dim3((n0 + 127) / 128, batch), 128, 0, s>>>(
+      part_b1, part_b2, part_j, n0, n_splits, d1, j1, d2, valid0, r2, idx0, ok);
   return cudaGetLastError();
 }
 
@@ -397,11 +431,13 @@ int knn2_tile_rows() { return BQ; }
 int knn2_tile_cols() { return BT; }
 int knn2_max_dim() { return MAXD; }
 
-// Launches both kernels on `stream`. `part` holds 3 * n0 * n_splits words
-// (best, second, column per row and split). valid0, idx0 and ok may be null
-// (no ratio test). Returns the first CUDA error of the launches, else 0.
+// Launches both kernels on `stream` for `batch` pairs of (n0, d) queries and
+// (n1, d) train rows; each array holds the pairs' blocks one after another.
+// `part` holds 3 * batch * n0 * n_splits words (best, second, column per
+// row and split). valid0, idx0 and ok may be null (no ratio test). Returns
+// the first CUDA error of the launches, else 0.
 int knn2_launch(const float* q, const float* qsq, const float* t, const float* tsq,
-                const uint8_t* tvalid, int n0, int n1, int d, int n_splits,
+                const uint8_t* tvalid, int batch, int n0, int n1, int d, int n_splits,
                 int tiles_per_split, float* part, float* d1, int* j1, float* d2,
                 const uint8_t* valid0, float r2, int* idx0, uint8_t* ok, int device,
                 void* stream) {
@@ -410,8 +446,8 @@ int knn2_launch(const float* q, const float* qsq, const float* t, const float* t
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = launch(q, qsq, t, tsq, tvalid, n0, n1, d, n_splits, tiles_per_split, part, d1, j1, d2,
-               valid0, r2, idx0, ok, device, reinterpret_cast<cudaStream_t>(stream));
+  err = launch(q, qsq, t, tsq, tvalid, batch, n0, n1, d, n_splits, tiles_per_split, part, d1,
+               j1, d2, valid0, r2, idx0, ok, device, reinterpret_cast<cudaStream_t>(stream));
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
 }

@@ -30,6 +30,16 @@ camera block).
 Gauge: camera 0 is frozen (its Jacobian blocks are zeroed, its per-camera
 intrinsics too). At the identity intrinsics [1, 0, 0] the projection is the
 pinhole ``K [R|t] X`` bit for bit.
+
+Sharding (``parallel/distributed_ba.py``): with a `group` (a
+``parallel.mesh.Mesh`` or a process group), the problem holds this rank's
+block of the point axis, and every camera-side sum over points is
+all-reduced at the sites where the JAX package psums: the cost's numerator
+and denominator, U, g_c (and U_ct, U_tt, g_t), the Schur right-hand side
+and each CG step's W V^-1 W^T product. Per-point quantities (V, V^-1, the
+point back-substitution) stay local, and the accept test reads the reduced
+cost, so every rank takes the same LM branch. With ``group=None`` nothing
+is reduced and no arithmetic changes.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import torch
 
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops import lie
+from sfm_mvs_tpu_torch.parallel import mesh as meshlib
 
 
 class BAProblem(NamedTuple):
@@ -215,10 +226,18 @@ def _weights(prob: BAProblem) -> torch.Tensor:
             & prob.cam_valid[None, :]).to(prob.points.dtype)
 
 
-def _cost(prob: BAProblem, huber_delta: float = 0.0) -> torch.Tensor:
+def _reduce(xs, group):
+    """The sums `xs` over the ranks of `group` (None: as they are)."""
+    if group is None:
+        return xs
+    return meshlib.all_reduce_many(xs, meshlib.as_mesh(group))
+
+
+def _cost(prob: BAProblem, huber_delta: float = 0.0, group=None) -> torch.Tensor:
     """Mean squared pixel residual over valid observations; with
     `huber_delta` > 0 the mean Huber cost, the objective the robustified
-    ``_lm_solve`` step minimizes (step and acceptance test must agree)."""
+    ``_lm_solve`` step minimizes (step and acceptance test must agree).
+    With `group`, numerator and denominator are summed over its ranks."""
     w = _weights(prob)
     r = _res_grid(prob.cam_params, prob.points, prob.obs_uv, prob.K, prob.intr)
     sq = (r * r).sum(-1)
@@ -227,7 +246,8 @@ def _cost(prob: BAProblem, huber_delta: float = 0.0) -> torch.Tensor:
         rho = torch.where(rn <= huber_delta, sq, huber_delta * (2.0 * rn - huber_delta))
     else:
         rho = sq
-    return (rho * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    num, den = _reduce([(rho * w).sum(), w.sum()], group)
+    return num / torch.clamp_min(den, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +296,7 @@ def _outer_sum(X: torch.Tensor, Y: torch.Tensor, dims) -> torch.Tensor:
 
 
 def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
-              huber_delta: float = 0.0, refine_intrinsics: bool = False):
+              huber_delta: float = 0.0, refine_intrinsics: bool = False, group=None):
     """Solve the damped normal equations via Schur + PCG.
 
     Width-generic in the camera block (6, or 9 with per-camera
@@ -285,6 +305,9 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
     the CG unknown is the pair (delta_cam (C, w), delta_intr (3,)), coupled
     through U_ct = sum_p A^T T, U_tt = sum T^T T and Z_p = sum_c B^T T, and
     preconditioned by U_c^-1 and U_tt^-1.
+
+    With `group`, the point axis is this rank's block, and the camera-side
+    sums are all-reduced over the group (module docstring).
 
     Returns (delta_cam (C, w), delta_pts (P, 3), delta_intr (3,)).
     """
@@ -306,6 +329,17 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
     nc = A.shape[-1]  # camera-block width
 
     U = _outer_sum(A, A, (0, 2))  # (C, nc, nc)
+    g_c = -(A * r[..., None]).sum((0, 2))  # (C, nc)
+    if refine_intrinsics:
+        # The shared intrinsics constrain every observation, frozen
+        # cameras' included (T is not masked by `frozen`).
+        T = T * w[..., None, None]
+        U_ct = _outer_sum(A, T, (0, 2))  # (C, nc, 3)
+        U_tt = _outer_sum(T, T, (0, 1, 2))  # (3, 3)
+        g_t = -(T * r[..., None]).sum((0, 1, 2))  # (3,)
+        U, g_c, U_ct, U_tt, g_t = _reduce([U, g_c, U_ct, U_tt, g_t], group)
+    else:
+        U, g_c = _reduce([U, g_c], group)
     V = _outer_sum(B, B, (1, 2))  # (P, 3, 3)
     # W as a (C*nc, P*3) matrix: W[(c, a), (p, b)] = (A^T B)_pc[a, b].
     At = A.permute(1, 3, 0, 2)  # (C, nc, P, 2)
@@ -313,7 +347,6 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
     W = torch.empty((C, nc, P, 3), dtype=A.dtype, device=A.device)
     torch.mul(At[..., 0, None], Bt[:, None, ..., 0], out=W)
     W = W.addcmul_(At[..., 1, None], Bt[:, None, ..., 1]).view(C * nc, P * 3)
-    g_c = -(A * r[..., None]).sum((0, 2))  # (C, nc)
     g_p = -(B * r[..., None]).sum((1, 2))  # (P, 3)
 
     # A camera with no (unfrozen) observation has an all-zero U block
@@ -335,29 +368,27 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
     def W_dot(xp):  # (P, 3) -> (C, nc): sum_p W_pc x_p
         return (W @ xp.reshape(P * 3, 1)).view(C, nc)
 
+    def back(zp):  # the point-summed products of the camera rows, reduced
+        if not refine_intrinsics:
+            return _reduce([W_dot(zp)], group)
+        return _reduce([W_dot(zp), (Z * zp[:, :, None]).sum((0, 1))], group)
+
     # Schur right-hand side: b = g_c - sum_p W_pc V_p^-1 g_p.
     Vg = _bmv(V_inv, g_p)
-    b = [g_c - W_dot(Vg)]
     if refine_intrinsics:
-        # The shared intrinsics constrain every observation, frozen
-        # cameras' included (T is not masked by `frozen`).
-        T = T * w[..., None, None]
-        U_ct = _outer_sum(A, T, (0, 2))  # (C, nc, 3)
-        U_tt = _outer_sum(T, T, (0, 1, 2))  # (3, 3)
         Z = _outer_sum(B, T, (1, 2))  # (P, 3, 3)
-        g_t = -(T * r[..., None]).sum((0, 1, 2))  # (3,)
         U_tt = U_tt + lam * torch.diag(U_tt.diagonal()) + 1e-6 * eye3
         U_tt_inv = torch.linalg.inv_ex(U_tt + 1e-5 * eye3)[0]
-        b.append(g_t - (Z * Vg[:, :, None]).sum((0, 1)))
+    b = [g - s for g, s in zip([g_c, g_t] if refine_intrinsics else [g_c], back(Vg))]
 
     def S_apply(x):  # matrix-free S @ x on the CG unknowns
         if not refine_intrinsics:
-            return [_bmv(U, x[0]) - W_dot(_bmv(V_inv, Wt_dot(x[0])))]
+            return [_bmv(U, x[0]) - back(_bmv(V_inv, Wt_dot(x[0])))[0]]
         xc, xt = x
         zp = _bmv(V_inv, Wt_dot(xc) + (Z * xt).sum(-1))
-        return [_bmv(U, xc) + (U_ct * xt).sum(-1) - W_dot(zp),
-                (U_ct * xc[:, :, None]).sum((0, 1)) + U_tt @ xt
-                - (Z * zp[:, :, None]).sum((0, 1))]
+        wz, zz = back(zp)
+        return [_bmv(U, xc) + (U_ct * xt).sum(-1) - wz,
+                (U_ct * xc[:, :, None]).sum((0, 1)) + U_tt @ xt - zz]
 
     def precond(x):  # block Jacobi: U_c^-1 per camera, U_tt^-1
         out = [_bmv(U_inv, x[0])]
@@ -406,26 +437,30 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
 def run_ba(prob: BAProblem, max_iterations: int = 20, cg_iters: int = 20,
            damping_init: float = 1e-3, damping_up: float = 4.0,
            damping_down: float = 2.0, huber_delta: float = 0.0,
-           refine_intrinsics: bool = False):
+           refine_intrinsics: bool = False, group=None):
     """Levenberg-Marquardt with accept/reject and multiplicative damping.
 
     Runs `max_iterations` steps without a host sync. A step is active while
     the damping is below 1e5 (where the JAX ``while_loop`` would still be
     running); only active steps update the problem, the damping and the
     counters. refine_intrinsics: also optimize the shared [s, k1, k2]
-    block ``prob.intr``. Returns (BAProblem, BAStats).
+    block ``prob.intr``. group: `prob` is this rank's point block of a
+    problem sharded over the group (``parallel/distributed_ba.py``).
+    Returns (BAProblem, BAStats).
     """
-    cost = _cost(prob, huber_delta)
+    if group is not None:
+        group = meshlib.as_mesh(group)
+    cost = _cost(prob, huber_delta, group)
     cost0 = cost
     lam = torch.full((), damping_init, dtype=prob.points.dtype, device=prob.points.device)
     it = torch.zeros((), dtype=torch.int32, device=lam.device)
     accepted = torch.zeros_like(it)
     for _ in range(max_iterations):
         active = lam < 1e5
-        dc, dp, dt = _lm_solve(prob, lam, cg_iters, huber_delta, refine_intrinsics)
+        dc, dp, dt = _lm_solve(prob, lam, cg_iters, huber_delta, refine_intrinsics, group)
         cand = prob._replace(cam_params=prob.cam_params + dc, points=prob.points + dp,
                              intr=prob.intr + dt if refine_intrinsics else prob.intr)
-        new_cost = _cost(cand, huber_delta)
+        new_cost = _cost(cand, huber_delta, group)
         improve = new_cost < cost
         take = active & improve
         prob = prob._replace(
@@ -452,20 +487,10 @@ def bundle_adjust_map(state: MapState, max_iterations: int = 20, cg_iters: int =
     return write_back_to_map(state, prob), stats
 
 
-def bundle_adjust_window(state: MapState, window_cams: int = 16,
-                         window_points: int = 16384, max_iterations: int = 8,
-                         cg_iters: int = 12, freeze_cams: int = 2,
-                         huber_delta: float = 0.0):
-    """Sliding-window local BA whose cost is independent of map capacity.
-
-    Takes the last `window_cams` camera slots x the last `window_points`
-    point slots of the grid (starts clamped into range, as
-    ``lax.dynamic_slice`` does), runs the same LM on that sub-grid and
-    writes the result back. The oldest `freeze_cams` window cameras are
-    frozen (they anchor the window and the gauge); window points with fewer
-    than 2 in-window observations are excluded and written back unchanged.
-    Returns (MapState, BAStats).
-    """
+def _window_problem(state: MapState, window_cams: int, window_points: int,
+                    freeze_cams: int):
+    """The window's sub-problem of :func:`bundle_adjust_window` and what
+    :func:`_window_write_back` needs: (BAProblem, cut)."""
     C = state.poses.shape[0]
     P = state.points.shape[0]
     Wc = min(window_cams, C)
@@ -495,15 +520,40 @@ def bundle_adjust_window(state: MapState, window_cams: int = 16,
         obs_mask=obs_mask_w, K=state.K, frozen=frozen,
         intr=torch.tensor(_INTR_IDENTITY, dtype=points_w.dtype, device=dev),
     )
-    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
-                         huber_delta=huber_delta)
+    return prob, (ci, pi, poses_w, points_w, point_ok, frozen)
+
+
+def _window_write_back(state: MapState, prob: BAProblem, cut) -> MapState:
+    """The solved window written into the map; frozen cameras and excluded
+    points keep their values."""
+    ci, pi, poses_w, points_w, point_ok, frozen = cut
     poses_new = lie.rt_to_matrix(prob.cam_params[:, :3], prob.cam_params[:, 3:])
     poses_new = torch.where(frozen[:, None, None], poses_w, poses_new)
     points_new = torch.where(point_ok[:, None], prob.points, points_w)
     return state._replace(
         poses=state.poses.index_copy(0, ci, poses_new),
         points=state.points.index_copy(0, pi, points_new),
-    ), stats
+    )
+
+
+def bundle_adjust_window(state: MapState, window_cams: int = 16,
+                         window_points: int = 16384, max_iterations: int = 8,
+                         cg_iters: int = 12, freeze_cams: int = 2,
+                         huber_delta: float = 0.0):
+    """Sliding-window local BA whose cost is independent of map capacity.
+
+    Takes the last `window_cams` camera slots x the last `window_points`
+    point slots of the grid (starts clamped into range, as
+    ``lax.dynamic_slice`` does), runs the same LM on that sub-grid and
+    writes the result back. The oldest `freeze_cams` window cameras are
+    frozen (they anchor the window and the gauge); window points with fewer
+    than 2 in-window observations are excluded and written back unchanged.
+    Returns (MapState, BAStats).
+    """
+    prob, cut = _window_problem(state, window_cams, window_points, freeze_cams)
+    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
+                         huber_delta=huber_delta)
+    return _window_write_back(state, prob, cut), stats
 
 
 def bundle_adjust_map_percam_intrinsics(state: MapState, max_iterations: int = 20,

@@ -15,10 +15,10 @@ matches and verifies a stack of them once (one batched 8-point E-RANSAC),
 ``inject_reobservations_batch`` does both in one call. The JAX package
 matches these pairs with its plain XLA matcher; here they go through the
 2-NN kernel on CUDA tensors (the same function; its wrapper takes the plain
-version for CPU tensors), or the plain matcher with
-``use_pallas_matcher=False``. Batched scatters write only the accepted
-entries, made distinct first, where the JAX package drops the rest into an
-out-of-range row.
+version for CPU tensors), a stack of pairs in one batched launch, or the
+plain matcher with ``use_pallas_matcher=False``. Batched scatters write
+only the accepted entries, made distinct first, where the JAX package drops
+the rest into an out-of-range row.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from sfm_mvs_tpu_torch.models import map_store
 from sfm_mvs_tpu_torch.models.incremental import resolve_device
 from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift
 from sfm_mvs_tpu_torch.ops.epipolar import recover_pose
-from sfm_mvs_tpu_torch.ops.matching_cuda import knn_match_cuda
+from sfm_mvs_tpu_torch.ops.matching_cuda import knn_match_cuda, knn_match_cuda_batch
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
 
@@ -210,23 +210,17 @@ def inject_reobservations(state, cam_i, cam_j, feats_i: Features, feats_j: Featu
     return state, ok.sum()
 
 
-def _row(feats: Features, b: int) -> Features:
-    return Features(*[f[b] for f in feats])
-
-
 def _match_batch(feats_i: Features, feats_j: Features, pair_valid, cfg: SfmConfig):
-    """(B, M) matches of B stacked pairs: one ``_match`` (K1 on CUDA
-    tensors) per live pair; pad rows (pair_valid False) are not matched and
-    come back all invalid."""
-    B, M = feats_i.valid.shape
-    dev = feats_i.valid.device
-    none = matching.Matches(idx0=torch.arange(M, dtype=torch.int32, device=dev),
-                            idx1=torch.zeros(M, dtype=torch.int32, device=dev),
-                            valid=torch.zeros(M, dtype=torch.bool, device=dev))
-    live = torch.as_tensor(pair_valid).tolist()
-    rows = [_match(_row(feats_i, b), _row(feats_j, b), cfg) if live[b] else none
-            for b in range(B)]
-    return matching.Matches(*[torch.stack(col) for col in zip(*rows)])
+    """(B, M) matches of B stacked pairs: one batched K1 launch
+    (``knn_match_cuda_batch``; the plain batched matcher on CPU tensors or
+    with use_pallas_matcher off). Pad rows (pair_valid False) come back all
+    invalid, with idx1 0."""
+    fc = cfg.frontend
+    match = knn_match_cuda_batch if fc.use_pallas_matcher else matching.knn_match
+    m = match(feats_i.desc, feats_j.desc, feats_i.valid, feats_j.valid, ratio=fc.lowe_ratio)
+    live = pair_valid.to(torch.bool)[:, None]
+    return m._replace(idx1=torch.where(live, m.idx1, torch.zeros_like(m.idx1)),
+                      valid=m.valid & live)
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -321,7 +315,7 @@ def stitch_candidates_batch(state, cam_is, cam_js, feats_i: Features, feats_j: F
                             tracks_i, tracks_j, pair_valid, cfg: SfmConfig, gen=None,
                             sample_idx=None) -> StitchCandidates:
     """Match and epipolar-verify B pairs; both injection directions come
-    from the one match set. K1 runs once per live pair, then one
+    from the one match set. One batched K1 launch matches the stack, then one
     ``ransac_essential_batch`` (8-point, essential_iters) verifies the
     stack: draws from `gen`, or injected samples `sample_idx` (B, iters, 8).
 

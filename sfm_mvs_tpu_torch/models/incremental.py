@@ -31,6 +31,7 @@ from sfm_mvs_tpu_torch.models.refine import finalize_map
 from sfm_mvs_tpu_torch.models.two_view import bootstrap
 from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift, triangulation
 from sfm_mvs_tpu_torch.ops.sift import Features
+from sfm_mvs_tpu_torch.parallel import frontend
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
 
 
@@ -333,11 +334,15 @@ class IncrementalSfM:
 
         pre_feats: Optional[list] = None
         if batch_detect > 0:
-            # The JAX package vmaps each chunk; a batched SIFT is later work,
-            # so a chunk is detected frame by frame (the same features).
+            # One batched detection per chunk, padded to batch_detect with
+            # its last frame (one batch shape throughout).
             pre_feats = []
             for s in range(0, len(images_gray), batch_detect):
-                pre_feats += [detect(i) for i in range(s, min(s + batch_detect, len(images_gray)))]
+                chunk = list(images_gray[s:s + batch_detect])
+                batch = np.stack(chunk + [chunk[-1]] * (batch_detect - len(chunk)))
+                fb = frontend.detect_batch(
+                    torch.as_tensor(batch.astype(np.float32), device=dev), cfg.frontend)
+                pre_feats += [Features(*[f[j] for f in fb]) for j in range(len(chunk))]
 
         def get_feats(i):
             f = pre_feats[i] if pre_feats is not None else detect(i)

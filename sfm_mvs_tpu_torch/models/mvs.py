@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops import projection as proj
+from sfm_mvs_tpu_torch.parallel import mesh as meshlib
 
 # torch.nanquantile refuses inputs of more than 2**24 elements; the
 # per-camera depth quantiles run over row chunks below that size.
@@ -537,14 +538,21 @@ def densify_map(images_gray: Sequence, state: MapState, num_depths: int = 64,
     staged on the map's device. max_refs sweeps only the first max_refs
     reference frames (neighbor selection still uses every camera).
 
+    With `mesh` (a ``parallel.mesh.Mesh`` or a process group, every rank
+    calling with the same arguments), `batch` is rounded up to a multiple of
+    the rank count and each rank sweeps its slots of every pass-1 batch;
+    an all-gather of depth, confidence and valid gives every rank all the
+    depth maps, and pass 2 runs on every rank as in the unsharded run, so
+    every rank returns the same cloud.
+
     Returns (points (N, 3), colors (N, 3)) as float32 numpy arrays, ready
     for io.to_ply, and with `return_depth_maps` also {frame: DepthMap} of
     the filtered, fused depth maps.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "densify_map(mesh=...): sharding over a device mesh is not ported yet "
-            "(ROADMAP A13)")
+        mesh = meshlib.as_mesh(mesh)
+        batch = -(-max(batch, mesh.size) // mesh.size) * mesh.size
+        mine = meshlib.block(batch, mesh)
     n_total = int(state.num_cams)
     n_cams = n_total if max_refs is None else min(n_total, max_refs)
     K = state.K
@@ -580,12 +588,16 @@ def densify_map(images_gray: Sequence, state: MapState, num_depths: int = 64,
         # Pad each ref's neighbor list to M by repeating its first neighbor
         # (a duplicated view only re-votes the same evidence).
         nbr_idx = [(neighbors(r) + [neighbors(r)[0]] * M)[:M] for r in chunk_p]
+        if mesh is not None:  # this rank's slots of the batch
+            chunk_p, nbr_idx = chunk_p[mine], nbr_idx[mine]
         idx = torch.as_tensor(chunk_p, device=dev)
         dms = _plane_sweep_batch(
             torch.stack([imgs_dev[r] for r in chunk_p]),
             torch.stack([torch.stack([imgs_dev[i] for i in nn]) for nn in nbr_idx]),
             state.poses[idx], state.poses[torch.as_tensor(nbr_idx, device=dev)], K,
             lo_all[idx], hi_all[idx], num_depths=num_depths, dist=dist)
+        if mesh is not None:  # every rank's slots, in slot order
+            dms = DepthMap(*[meshlib.all_gather(x, mesh).flatten(0, 1) for x in dms])
         for j, r in enumerate(chunk):
             depth_maps[r] = DepthMap(*[x[j] for x in dms])
     mark("pass1 sweeps")

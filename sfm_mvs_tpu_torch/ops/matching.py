@@ -9,6 +9,9 @@ to the hand-written kernel in ``ops/matching_cuda.py`` otherwise.
 
 The ratio test matches the reference: keep a match when d1 < ratio * d2 on
 L2 distances, i.e. d1^2 < ratio^2 * d2^2.
+
+Every function here also takes a leading batch axis, B pairs of one shape
+(the JAX package's ``parallel/frontend.match_batch`` vmaps its matcher).
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ BIG = 3.0e38
 
 
 class Matches(NamedTuple):
-    idx0: torch.Tensor  # (M,) int32 feature index in image 0
-    idx1: torch.Tensor  # (M,) int32 feature index in image 1
-    valid: torch.Tensor  # (M,) bool
+    idx0: torch.Tensor  # ([B,] M) int32 feature index in image 0
+    idx1: torch.Tensor  # ([B,] M) int32 feature index in image 1
+    valid: torch.Tensor  # ([B,] M) bool
 
 
 def squared_norms(x: torch.Tensor) -> torch.Tensor:
@@ -35,24 +38,25 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
 def distance_matrix(
     desc0: torch.Tensor, desc1: torch.Tensor, valid1: torch.Tensor
 ) -> torch.Tensor:
-    """Squared L2 distances (N0, N1); invalid train columns get 3e38."""
-    sq0 = squared_norms(desc0)[:, None]
-    sq1 = squared_norms(desc1)[None, :]
-    cross = desc0 @ desc1.T
+    """Squared L2 distances ([B,] N0, N1); invalid train columns get 3e38."""
+    sq0 = squared_norms(desc0)[..., :, None]
+    sq1 = squared_norms(desc1)[..., None, :]
+    cross = desc0 @ desc1.transpose(-1, -2)
     d2 = torch.clamp_min((sq0 + sq1) - 2.0 * cross, 0.0)
-    return torch.where(valid1[None, :], d2, torch.full_like(d2, BIG))
+    return torch.where(valid1[..., None, :], d2, torch.full_like(d2, BIG))
 
 
 def top2(d2: torch.Tensor):
-    """Per-row two smallest distances + argmin (lowest column on ties).
+    """Per-row two smallest distances + argmin (lowest column on ties) of
+    ([B,] N0, N1).
 
     Returns (d1, j1, d2nd): best distance, its column, second-best distance.
     """
-    j1 = torch.argmin(d2, dim=1)
-    d1 = torch.gather(d2, 1, j1[:, None])[:, 0]
-    cols = torch.arange(d2.shape[1], device=d2.device)
-    masked = torch.where(cols[None, :] == j1[:, None], torch.full_like(d2, BIG), d2)
-    d2nd = masked.min(dim=1).values
+    j1 = torch.argmin(d2, dim=-1)
+    d1 = torch.gather(d2, -1, j1[..., None])[..., 0]
+    cols = torch.arange(d2.shape[-1], device=d2.device)
+    masked = torch.where(cols == j1[..., None], torch.full_like(d2, BIG), d2)
+    d2nd = masked.min(dim=-1).values
     return d1, j1, d2nd
 
 
@@ -76,19 +80,22 @@ def knn_match(
 ) -> Matches:
     """k=2 brute-force match with Lowe ratio filter.
 
-    desc0: (N0, D); desc1: (N1, D); valid*: (N*,) feature-slot validity.
-    Returns Matches of length N0: slot i holds the best train index for
-    query i; `valid` marks matches that survive the ratio test (and,
-    optionally, a mutual-nearest check).
+    desc0: ([B,] N0, D); desc1: ([B,] N1, D); valid*: ([B,] N*) feature-slot
+    validity. Returns Matches of length N0 (per pair): slot i holds the best
+    train index for query i; `valid` marks matches that survive the ratio
+    test (and, optionally, a mutual-nearest check).
     """
     d2 = distance_matrix(desc0, desc1, valid1)
     d1, j1, d2nd = top2(d2)
     ok = ratio_test(valid0, d1, d2nd, ratio)
+    n0 = desc0.shape[-2]
+    rows = torch.arange(n0, device=desc0.device)
     if mutual:
-        d2_t = torch.where(valid0[None, :], d2.T, torch.full_like(d2.T, BIG))
-        back = torch.argmin(d2_t, dim=1)  # (N1,) best query for each train
-        ok = ok & (back[j1] == torch.arange(desc0.shape[0], device=desc0.device))
-    idx0 = torch.arange(desc0.shape[0], dtype=torch.int32, device=desc0.device)
+        d2_t = d2.transpose(-1, -2)
+        d2_t = torch.where(valid0[..., None, :], d2_t, torch.full_like(d2_t, BIG))
+        back = torch.argmin(d2_t, dim=-1)  # ([B,] N1) best query for each train
+        ok = ok & (torch.gather(back, -1, j1) == rows)
+    idx0 = rows.to(torch.int32).expand(j1.shape)
     return Matches(idx0=idx0, idx1=j1.to(torch.int32), valid=ok)
 
 
@@ -99,12 +106,15 @@ def match_with_config(desc0, desc1, valid0, valid1, cfg) -> Matches:
     (``matching.py:107-114``): the fused kernel serves
     ``use_pallas_matcher and not mutual_check``; the plain version serves
     the mutual check and ``use_pallas_matcher=False``. The kernel's wrapper
-    itself takes the plain version for CPU tensors.
+    itself takes the plain version for CPU tensors. A batch of pairs
+    (3-D descriptors) takes the same route: one batched kernel launch.
     """
     if getattr(cfg, "use_pallas_matcher", True) and not cfg.mutual_check:
-        from sfm_mvs_tpu_torch.ops.matching_cuda import knn_match_cuda
+        from sfm_mvs_tpu_torch.ops import matching_cuda
 
-        return knn_match_cuda(desc0, desc1, valid0, valid1, ratio=cfg.lowe_ratio)
+        match = (matching_cuda.knn_match_cuda_batch if desc0.dim() == 3
+                 else matching_cuda.knn_match_cuda)
+        return match(desc0, desc1, valid0, valid1, ratio=cfg.lowe_ratio)
     return knn_match(
         desc0, desc1, valid0, valid1, ratio=cfg.lowe_ratio, mutual=cfg.mutual_check
     )

@@ -18,6 +18,11 @@ ops: the two norm reductions (``matching.squared_norms``, a product and a
 sum each, shared with the plain version so both see the same norms) and
 the two kernels.
 
+:func:`knn_match_cuda_batch` matches B pairs of one shape in one launch of
+the same two kernels (the batch is the grid's third axis), the counterpart
+of the JAX package's vmapped matcher; each pair's outputs equal its single
+launch's bit for bit.
+
 The library is compiled from the checkout's source with ``nvcc`` for
 ``sm_90a`` on first use, into ``sfm_mvs_tpu_torch/_build/`` (listed in
 .gitignore), and bound with ``ctypes``. Nothing is compiled or loaded at
@@ -47,8 +52,12 @@ _NVCC_FLAGS = [
 ]
 
 # Launches of the CUDA kernel since the last reset (one per wrapper call
-# that launched it; CPU calls do not count).
+# that launched it; CPU calls do not count): single-pair launches
+# (knn_match_cuda, knn2_raw), batched launches (knn_match_cuda_batch, one
+# per call) and the pairs those batched launches matched.
 launches = 0
+batch_launches = 0
+batch_pairs = 0
 
 # The kernel's block tile and widest descriptor (checked against the
 # library's own when it loads), and the blocks it keeps resident per SM
@@ -63,8 +72,8 @@ build_log = ""
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, batch_launches, batch_pairs
+    launches = batch_launches = batch_pairs = 0
 
 
 def _nvcc() -> str:
@@ -107,7 +116,8 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.knn2_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, f, p, p, i, p]
+            lib.knn2_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, f, p, p,
+                                        i, p]
             lib.knn2_launch.restype = i
             for name in ("knn2_tile_rows", "knn2_tile_cols", "knn2_max_dim"):
                 getattr(lib, name).argtypes = []
@@ -132,15 +142,16 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def plan_splits(n0: int, n1: int, sms: int) -> tuple[int, int]:
+def plan_splits(n0: int, n1: int, sms: int, batch: int = 1) -> tuple[int, int]:
     """(splits, tiles_per_split) of the train axis for the tile kernel.
 
-    The grid is (query row tiles) x splits; split s walks the column tiles
-    [s * tiles_per_split, (s + 1) * tiles_per_split), so the splits cover
-    every column tile exactly once. The split count is the one with the
-    fewest tile-steps per SM slot, waves x tiles_per_split, with
-    BLOCKS_PER_SM resident blocks on each of `sms` SMs (the fewest splits
-    on ties).
+    The grid is (query row tiles) x splits x `batch` pairs; split s walks
+    the column tiles [s * tiles_per_split, (s + 1) * tiles_per_split), so
+    the splits cover every column tile exactly once. The split count is the
+    one with the fewest tile-steps per SM slot, waves x tiles_per_split,
+    with BLOCKS_PER_SM resident blocks on each of `sms` SMs (the fewest
+    splits on ties): where batch x row tiles already fill the slots, that
+    is one split.
     """
     row_tiles = -(-n0 // TILE)
     col_tiles = -(-n1 // TILE)
@@ -149,7 +160,7 @@ def plan_splits(n0: int, n1: int, sms: int) -> tuple[int, int]:
     for s in range(1, col_tiles + 1):
         per = -(-col_tiles // s)
         used = -(-col_tiles // per)  # no empty split
-        cost = -(-row_tiles * used // slots) * per
+        cost = -(-batch * row_tiles * used // slots) * per
         if best is None or cost < best[0]:
             best = (cost, used, per)
     return best[1], best[2]
@@ -161,45 +172,53 @@ def _sm_count(idx: int) -> int:
 
 
 def _launch(desc0, desc1, valid1, valid0=None, ratio=0.0):
-    """Both kernels; one launch counted. Returns (work, jj, ok): d1 and d2
-    are the last 2 * N0 floats of `work` (after the per-split partials),
-    jj holds idx0 and j1, ok the ratio test (None without `valid0`)."""
-    global launches
-    _check("desc0", desc0, torch.float32, 2)
-    _check("desc1", desc1, torch.float32, 2)
-    _check("valid1", valid1, torch.bool, 1)
-    n0, d = desc0.shape
-    n1 = desc1.shape[0]
-    if desc1.shape[1] != d or valid1.shape[0] != n1:
+    """Both kernels, for one pair (2-D descriptors) or a batch of pairs
+    (3-D, leading axis B); one launch counted, in ``launches`` or
+    ``batch_launches``. Returns (work, jj, ok): d1 and d2 are the last
+    2 * B * N0 floats of `work` (after the per-split partials), jj (2, [B,]
+    N0) holds idx0 and j1, ok the ratio test (None without `valid0`)."""
+    global launches, batch_launches, batch_pairs
+    nd = desc0.dim()
+    if nd not in (2, 3):
+        raise ValueError(f"desc0 must be (N0, D) or (B, N0, D), got {tuple(desc0.shape)}")
+    _check("desc0", desc0, torch.float32, nd)
+    _check("desc1", desc1, torch.float32, nd)
+    _check("valid1", valid1, torch.bool, nd - 1)
+    lead = tuple(desc0.shape[:-2])
+    b = desc0.shape[0] if nd == 3 else 1
+    n0, d = desc0.shape[-2:]
+    n1 = desc1.shape[-2]
+    if (desc1.shape[-1] != d or tuple(desc1.shape[:-2]) != lead
+            or tuple(valid1.shape) != lead + (n1,)):
         raise ValueError(
             f"shape mismatch: desc0 {tuple(desc0.shape)}, desc1 "
             f"{tuple(desc1.shape)}, valid1 {tuple(valid1.shape)}")
     if d % 16 or d > MAX_DIM or d == 0:
         raise ValueError(f"descriptor width {d} unsupported (multiple of 16, <= {MAX_DIM})")
-    if n1 < 1 or n0 < 1:
-        raise ValueError(f"empty descriptor set: N0={n0}, N1={n1}")
+    if n1 < 1 or n0 < 1 or b < 1:
+        raise ValueError(f"empty descriptor set: B={b}, N0={n0}, N1={n1}")
     dev = desc0.device
     if not (desc1.device == valid1.device == dev):
         raise ValueError("desc0, desc1 and valid1 must be on one device")
     if valid0 is not None:
-        _check("valid0", valid0, torch.bool, 1)
-        if valid0.shape[0] != n0 or valid0.device != dev:
+        _check("valid0", valid0, torch.bool, nd - 1)
+        if tuple(valid0.shape) != lead + (n0,) or valid0.device != dev:
             raise ValueError(f"valid0 {tuple(valid0.shape)} on {valid0.device} does not "
                              f"fit desc0 {tuple(desc0.shape)} on {dev}")
     lib = _load()
     qsq = squared_norms(desc0)
     tsq = squared_norms(desc1)
-    splits, per = plan_splits(n0, n1, _sm_count(dev.index))
-    n_part = 3 * n0 * splits
-    work = torch.empty((n_part + 2 * n0,), dtype=torch.float32, device=dev)
-    jj = torch.empty((2, n0), dtype=torch.int32, device=dev)  # idx0, j1
-    ok = torch.empty((n0,), dtype=torch.bool, device=dev) if valid0 is not None else None
+    splits, per = plan_splits(n0, n1, _sm_count(dev.index), b)
+    n_part = 3 * b * n0 * splits
+    work = torch.empty((n_part + 2 * b * n0,), dtype=torch.float32, device=dev)
+    jj = torch.empty((2,) + lead + (n0,), dtype=torch.int32, device=dev)  # idx0, j1
+    ok = torch.empty(lead + (n0,), dtype=torch.bool, device=dev) if valid0 is not None else None
     w = work.data_ptr()
     d_ptr = w + 4 * n_part  # d1, then d2
     err = lib.knn2_launch(
         desc0.data_ptr(), qsq.data_ptr(), desc1.data_ptr(), tsq.data_ptr(),
-        valid1.data_ptr(), n0, n1, d, splits, per, w,
-        d_ptr, jj.data_ptr() + 4 * n0, d_ptr + 4 * n0,
+        valid1.data_ptr(), b, n0, n1, d, splits, per, w,
+        d_ptr, jj.data_ptr() + 4 * b * n0, d_ptr + 4 * b * n0,
         None if valid0 is None else valid0.data_ptr(),
         ratio * ratio,  # rounded to float32, as the plain version's scalar is
         None if valid0 is None else jj.data_ptr(),
@@ -210,7 +229,11 @@ def _launch(desc0, desc1, valid1, valid0=None, ratio=0.0):
     )
     if err != 0:
         raise RuntimeError(f"knn2 kernel launch failed with CUDA error {err}")
-    launches += 1
+    if nd == 3:
+        batch_launches += 1
+        batch_pairs += b
+    else:
+        launches += 1
     return work, jj, ok
 
 
@@ -218,10 +241,13 @@ def knn2_raw(desc0, desc1, valid1):
     """Launch the kernel: (d1, j1, d2) per query row, before the ratio test.
 
     desc0: (N0, D) float32, desc1: (N1, D) float32, valid1: (N1,) bool, all
-    contiguous on one CUDA device; D a multiple of 16, at most 128.
+    contiguous on one CUDA device; D a multiple of 16, at most 128. With a
+    leading batch axis on all three (B pairs of one shape) it is one
+    batched launch, and each output gains that axis.
     """
     work, jj, _ = _launch(desc0, desc1, valid1)
-    d1, d2 = work[-2 * desc0.shape[0]:].view(2, -1)
+    shape = desc0.shape[:-1]
+    d1, d2 = work[-2 * shape.numel():].view((2,) + tuple(shape))
     return d1, jj[1], d2
 
 
@@ -241,6 +267,31 @@ def knn_match_cuda(
     """
     if desc0.device.type == "cpu":
         return knn_match(desc0, desc1, valid0, valid1, ratio=ratio)
+    _, jj, ok = _launch(desc0, desc1, valid1, valid0, ratio)
+    idx0, j1 = jj
+    return Matches(idx0=idx0, idx1=j1, valid=ok)
+
+
+def knn_match_cuda_batch(
+    desc0: torch.Tensor,
+    desc1: torch.Tensor,
+    valid0: torch.Tensor,
+    valid1: torch.Tensor,
+    ratio: float = 0.70,
+) -> Matches:
+    """``knn_match_cuda`` for B pairs of one shape in one launch.
+
+    desc0 (B, N0, D), desc1 (B, N1, D), valid0 (B, N0), valid1 (B, N1).
+    On CUDA tensors it launches the kernels once for the batch (counted in
+    ``batch_launches``; ``batch_pairs`` grows by B) and raises on anything
+    but contiguous float32 descriptors and bool masks; each pair's outputs
+    equal its single launch's. On CPU tensors it returns the plain batched
+    version's result.
+    """
+    if desc0.device.type == "cpu":
+        return knn_match(desc0, desc1, valid0, valid1, ratio=ratio)
+    if desc0.dim() != 3:
+        raise ValueError(f"desc0 must be (B, N0, D), got {tuple(desc0.shape)}")
     _, jj, ok = _launch(desc0, desc1, valid1, valid0, ratio)
     idx0, j1 = jj
     return Matches(idx0=idx0, idx1=j1, valid=ok)

@@ -24,15 +24,23 @@ def gaussian_kernel_1d(sigma: float, radius: int | None = None) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+def replicate_pad(img: torch.Tensor, pad) -> torch.Tensor:
+    """F.pad(..., mode="replicate") of the last two axes of (..., H, W)."""
+    H, W = img.shape[-2:]
+    out = F.pad(img.reshape(1, -1, H, W), pad, mode="replicate")
+    return out.reshape(img.shape[:-2] + out.shape[-2:])
+
+
 def _conv1d(img: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
-    """Separable conv along one spatial axis of (H, W), replicate padding."""
+    """Separable conv along one spatial axis (0: rows, 1: columns) of
+    (..., H, W), replicate padding."""
     radius = len(taps) // 2
     pad = (0, 0, radius, radius) if axis == 0 else (radius, radius, 0, 0)
-    padded = F.pad(img[None], pad, mode="replicate")[0]
-    H, W = img.shape
+    padded = replicate_pad(img, pad)
+    H, W = img.shape[-2:]
     acc = None
     for t, k in enumerate(np.asarray(taps, dtype=np.float32)):
-        sl = padded[t:t + H, :] if axis == 0 else padded[:, t:t + W]
+        sl = padded[..., t:t + H, :] if axis == 0 else padded[..., t:t + W]
         # add(alpha=) rounds once per tap (a fused multiply-add), as XLA's
         # CPU code for `acc + sl * k` does, and is one kernel per tap.
         acc = sl * float(k) if acc is None else acc.add(sl, alpha=float(k))
@@ -40,7 +48,7 @@ def _conv1d(img: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Separable Gaussian blur. img: (H, W); sigma: Python float."""
+    """Separable Gaussian blur. img: (..., H, W); sigma: Python float."""
     if sigma <= 0:
         return img
     taps = gaussian_kernel_1d(sigma)
@@ -53,7 +61,7 @@ _PYR_TAPS = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """Gaussian-pyramid downscale (cv2.pyrDown): 5-tap binomial blur with
     replicate padding, then 2x decimation. (H, W) -> ((H+1)//2, (W+1)//2)."""
-    return _conv1d(_conv1d(img, _PYR_TAPS, 0), _PYR_TAPS, 1)[::2, ::2]
+    return _conv1d(_conv1d(img, _PYR_TAPS, 0), _PYR_TAPS, 1)[..., ::2, ::2]
 
 
 def img_downscale(img: torch.Tensor, downscale: int) -> torch.Tensor:
@@ -66,26 +74,29 @@ def img_downscale(img: torch.Tensor, downscale: int) -> torch.Tensor:
 
 
 def upsample2(img: torch.Tensor) -> torch.Tensor:
-    """Bilinear 2x upsample (OpenCV SIFT's initial image doubling):
-    interleave (x[i], (x[i] + x[i+1]) / 2) per axis, last row replicated."""
+    """Bilinear 2x upsample (OpenCV SIFT's initial image doubling) of
+    (..., H, W): interleave (x[i], (x[i] + x[i+1]) / 2) per axis, last row
+    replicated."""
 
-    def up_axis0(x):
-        mid = 0.5 * (x[:-1, :] + x[1:, :])
-        mid = torch.cat([mid, x[-1:, :]], dim=0)
-        return torch.stack([x, mid], dim=1).reshape(2 * x.shape[0], x.shape[1])
+    def up_rows(x):
+        mid = 0.5 * (x[..., :-1, :] + x[..., 1:, :])
+        mid = torch.cat([mid, x[..., -1:, :]], dim=-2)
+        H, W = x.shape[-2:]
+        return torch.stack([x, mid], dim=-2).reshape(x.shape[:-2] + (2 * H, W))
 
-    return up_axis0(up_axis0(img).T).T
+    return up_rows(up_rows(img).transpose(-1, -2)).transpose(-1, -2)
 
 
 def subsample2(img: torch.Tensor) -> torch.Tensor:
     """Every other pixel (between SIFT octaves; blur already applied)."""
-    return img[::2, ::2]
+    return img[..., ::2, ::2]
 
 
 def gaussian_scale_space(img: torch.Tensor, sigma0: float = 1.6,
                          scales_per_octave: int = 3,
                          assumed_blur: float = 0.5) -> torch.Tensor:
-    """One octave's Gaussian stack: (scales_per_octave + 3, H, W).
+    """One octave's Gaussian stack of img (..., H, W):
+    (..., scales_per_octave + 3, H, W).
 
     img carries `assumed_blur`; level i is brought to sigma0 * 2^(i/S) by
     incremental blurs.
@@ -101,4 +112,4 @@ def gaussian_scale_space(img: torch.Tensor, sigma0: float = 1.6,
         cur = gaussian_blur(cur, sig_diff)
         levels.append(cur)
         sig_prev = sig_total
-    return torch.stack(levels)
+    return torch.stack(levels, dim=-3)

@@ -11,6 +11,10 @@ the final K from the bf16-quantized polar gradient maps. With
 ``"bilinear"`` every octave candidate samples interpolated (dx, dy) maps
 for its orientations and two descriptors, and one global top-K follows.
 
+:func:`detect_batch` runs a batch of frames through every stage at once
+(the JAX package vmaps the single-frame detector); ``detect_and_compute``
+is its batch of one.
+
 Selection uses the exact ``torch.topk`` where the JAX package may use
 ``lax.approx_max_k`` (``approx_topk``); JAX computes the exact top-k on CPU
 too, so the two agree there.
@@ -23,7 +27,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sfm_mvs_tpu_torch.ops import pyramid
 from sfm_mvs_tpu_torch.utils.config import FrontendConfig
@@ -43,37 +46,39 @@ class Features(NamedTuple):
 
 
 def _pad_edge(x: torch.Tensor) -> torch.Tensor:
-    """(L, H, W) -> (L, H+2, W+2), edge replicated spatially."""
-    return F.pad(x[None], (1, 1, 1, 1), mode="replicate")[0]
+    """(..., H, W) -> (..., H+2, W+2), edge replicated spatially."""
+    return pyramid.replicate_pad(x, (1, 1, 1, 1))
 
 
 def _neighbor_extrema_mask(dog: torch.Tensor):
-    """Strict 26-neighbour max/min masks for DoG layers 1..L-2."""
-    L, H, W = dog.shape
-    center = dog[1:-1]
+    """Strict 26-neighbour max/min masks for DoG layers 1..L-2 of
+    (..., L, H, W)."""
+    L, H, W = dog.shape[-3:]
+    center = dog[..., 1:-1, :, :]
     is_max = torch.ones_like(center, dtype=torch.bool)
     is_min = torch.ones_like(center, dtype=torch.bool)
     padded = _pad_edge(dog)
     for dz in (-1, 0, 1):
-        sl = padded[1 + dz:1 + dz + L - 2]
+        sl = padded[..., 1 + dz:1 + dz + L - 2, :, :]
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
                 if dz == 0 and dy == 0 and dx == 0:
                     continue
-                nb = sl[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                nb = sl[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
                 is_max = is_max & (center > nb)
                 is_min = is_min & (center < nb)
     return is_max, is_min
 
 
 def _finite_diffs(dog: torch.Tensor):
-    """Central first/second derivatives of the DoG volume at middle layers."""
+    """Central first/second derivatives of the DoG volume (..., L, H, W)
+    at middle layers."""
     p = _pad_edge(dog)
-    L, H, W = dog.shape
-    c = dog[1:-1]
+    L, H, W = dog.shape[-3:]
+    c = dog[..., 1:-1, :, :]
 
     def sh(dz, dy, dx):
-        return p[1 + dz:1 + dz + L - 2, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+        return p[..., 1 + dz:1 + dz + L - 2, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
 
     gx = 0.5 * (sh(0, 0, 1) - sh(0, 0, -1))
     gy = 0.5 * (sh(0, 1, 0) - sh(0, -1, 0))
@@ -104,11 +109,12 @@ def _solve3_adjugate(hxx, hyy, hss, hxy, hxs, hys, gx, gy, gs):
 
 
 def _octave_candidates(dog: torch.Tensor, cfg: FrontendConfig):
-    """Dense candidate maps for one octave: (response (S, H, W), 0 where
-    invalid; offsets (dx, dy, ds) each (S, H, W))."""
+    """Dense candidate maps for one octave's DoG (..., S + 2, H, W):
+    (response (..., S, H, W), 0 where invalid; offsets (dx, dy, ds) each
+    (..., S, H, W))."""
     S = cfg.scales_per_octave
-    H, W = dog.shape[1], dog.shape[2]
-    center = dog[1:-1]
+    H, W = dog.shape[-2:]
+    center = dog[..., 1:-1, :, :]
     is_max, is_min = _neighbor_extrema_mask(dog)
     prefilter = center.abs() > 0.5 * cfg.contrast_threshold / S
     (gx, gy, gs), hess = _finite_diffs(dog)
@@ -320,7 +326,20 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
     """Full SIFT: scale space -> keypoints -> orientation -> descriptors.
 
     image: (H, W) float32 grayscale in [0, 1] on any device. Returns
-    fixed-capacity Features (cfg.max_features slots) in input-image pixels.
+    fixed-capacity Features (cfg.max_features slots) in input-image pixels:
+    :func:`detect_batch` of a batch of one.
+    """
+    return Features(*[f[0] for f in detect_batch(image[None], cfg)])
+
+
+def detect_batch(images: torch.Tensor, cfg: FrontendConfig) -> Features:
+    """SIFT over a batch of frames: the counterpart of the JAX package's
+    ``jax.vmap(detect_and_compute)`` (``parallel/frontend.py:detect_batch``).
+
+    images: (B, H, W) float32 grayscale in [0, 1]. Returns Features with a
+    leading (B,) axis. Every stage runs over the batch axis: the pyramid's
+    blurs, DoG, extrema, the per-octave and global ``torch.topk`` (one per
+    row), and orientations and descriptors over the B x K keypoints.
 
     With ``grad_sampling="nearest_polar"`` orientation and descriptors are
     deferred to the global top-K winners and read the bf16 polar maps; with
@@ -331,15 +350,17 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
     if cfg.grad_sampling not in ("nearest_polar", "bilinear"):
         raise ValueError(f"unknown grad_sampling {cfg.grad_sampling!r}")
     deferred = cfg.grad_sampling == "nearest_polar"
-    dev = image.device
+    dev = images.device
+    B = images.shape[0]
     S = cfg.scales_per_octave
-    base = pyramid.upsample2(image) if cfg.upsample_input else image
+    base = pyramid.upsample2(images) if cfg.upsample_input else images
     first_scale = 0.5 if cfg.upsample_input else 1.0  # input px per base px
     assumed = 1.0 if cfg.upsample_input else 0.5  # doubled image doubles blur
+    rows = torch.arange(B, device=dev)[:, None]  # batch index of a (B, k) entry
 
     budgets = _octave_budgets(cfg)
-    metas = []  # per-octave candidate attributes
-    mag_parts, ang_parts = [], []  # flattened per-octave polar maps
+    metas = []  # per-octave candidate attributes, each (B, k)
+    mag_parts, ang_parts = [], []  # per-octave polar maps, each (B, S * h * w)
     geoms = []  # (h, w) per octave
     per_octave = []  # bilinear path: (primary, secondary) Features per octave
     cur = base
@@ -347,27 +368,27 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
         blur_in = assumed if o == 0 else cfg.sigma0
         gauss = pyramid.gaussian_scale_space(
             cur, sigma0=cfg.sigma0, scales_per_octave=S, assumed_blur=blur_in)
-        dog = gauss[1:] - gauss[:-1]
+        dog = gauss[:, 1:] - gauss[:, :-1]
         response, (dx, dy, ds) = _octave_candidates(dog, cfg)
-        h, w = cur.shape
+        h, w = cur.shape[-2:]
 
-        pad = _pad_edge(gauss[1:S + 1])
-        gdx = 0.5 * (pad[:, 1:-1, 2:] - pad[:, 1:-1, :-2])
-        gdy = 0.5 * (pad[:, 2:, 1:-1] - pad[:, :-2, 1:-1])
+        pad = _pad_edge(gauss[:, 1:S + 1])
+        gdx = 0.5 * (pad[..., 1:-1, 2:] - pad[..., 1:-1, :-2])
+        gdy = 0.5 * (pad[..., 2:, 1:-1] - pad[..., :-2, 1:-1])
         if deferred:
             mag, ang = _polar_planes(gdx, gdy)
-            mag_parts.append(mag.reshape(-1))
-            ang_parts.append(ang.reshape(-1))
+            mag_parts.append(mag.reshape(B, -1))
+            ang_parts.append(ang.reshape(B, -1))
             geoms.append((h, w))
 
-        top_resp, top_idx = torch.topk(response.reshape(-1), budgets[o])
+        top_resp, top_idx = torch.topk(response.reshape(B, -1), budgets[o])
         lay = top_idx // (h * w)
         rem = top_idx % (h * w)
         iy = rem // w
         ix = rem % w
-        fx = ix.to(torch.float32) + dx.reshape(-1)[top_idx]
-        fy = iy.to(torch.float32) + dy.reshape(-1)[top_idx]
-        fs = lay.to(torch.float32) + ds.reshape(-1)[top_idx]
+        fx = ix.to(torch.float32) + torch.gather(dx.reshape(B, -1), 1, top_idx)
+        fy = iy.to(torch.float32) + torch.gather(dy.reshape(B, -1), 1, top_idx)
+        fs = lay.to(torch.float32) + torch.gather(ds.reshape(B, -1), 1, top_idx)
         sigma_oct = cfg.sigma0 * torch.exp2((fs + 1.0) / S)
         desc_rad = 3.0 * sigma_oct * (cfg.descriptor_width / 2.0) * math.sqrt(2.0)
         inside = (fx > desc_rad) & (fx < w - 1 - desc_rad) & (fy > desc_rad) & (fy < h - 1 - desc_rad)
@@ -380,54 +401,67 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
                 response=torch.where(valid, top_resp, zero),
             ))
         else:
-            sample = _bilinear_sampler(torch.stack([gdx, gdy]), lay)
-            ang1, ang2, has2 = _orientation(sample, fx, fy, sigma_oct)
+            # Frame b's layer l is plane b * S + l of the stacked maps.
+            sample = _bilinear_sampler(
+                torch.stack([gdx, gdy]).reshape(2, B * S, h, w), (rows * S + lay).reshape(-1))
+            fxf, fyf, sgf = fx.reshape(-1), fy.reshape(-1), sigma_oct.reshape(-1)
+            ang1, ang2, has2 = _orientation(sample, fxf, fyf, sgf)
+            ang1, ang2, has2 = (a.reshape(B, -1) for a in (ang1, ang2, has2))
             valid2 = valid & has2  # secondary-orientation duplicates
             stoi = first_scale * (2.0 ** o)
             xy = torch.stack([fx, fy], dim=-1) * stoi
             sc = sigma_oct * stoi
             per_octave.append(Features(
                 xy=xy, scale=sc, angle=ang1, response=torch.where(valid, top_resp, zero),
-                desc=_descriptor(sample, fx, fy, sigma_oct, ang1, cfg), valid=valid))
+                desc=_descriptor(sample, fxf, fyf, sgf, ang1.reshape(-1), cfg).reshape(B, budgets[o], -1),
+                valid=valid))
             # Down-weighted infinitesimally, so primaries win top-K ties.
             per_octave.append(Features(
                 xy=xy, scale=sc, angle=ang2,
                 response=torch.where(valid2, top_resp * 0.999999, zero),
-                desc=_descriptor(sample, fx, fy, sigma_oct, ang2, cfg), valid=valid2))
-        cur = pyramid.subsample2(gauss[S])
+                desc=_descriptor(sample, fxf, fyf, sgf, ang2.reshape(-1), cfg).reshape(B, budgets[o], -1),
+                valid=valid2))
+        cur = pyramid.subsample2(gauss[:, S])
 
     Kf = cfg.max_features
+
+    def take(x, order):  # x[b, order[b]] for every row b
+        return x[rows, order]
+
     if not deferred:
         # One global top-K over every octave's primary and secondary entries.
-        allf = Features(*[torch.cat(col, dim=0) for col in zip(*per_octave)])
+        allf = Features(*[torch.cat(col, dim=1) for col in zip(*per_octave)])
         top_resp, order = torch.topk(allf.response, Kf)
-        return Features(xy=allf.xy[order], scale=allf.scale[order], angle=allf.angle[order],
-                        response=top_resp, desc=allf.desc[order],
-                        valid=allf.valid[order] & (top_resp > 0.0))
+        return Features(xy=take(allf.xy, order), scale=take(allf.scale, order),
+                        angle=take(allf.angle, order), response=top_resp,
+                        desc=take(allf.desc, order),
+                        valid=take(allf.valid, order) & (top_resp > 0.0))
 
     def cat(k):
-        return torch.cat([m[k] for m in metas], dim=0)
+        return torch.cat([m[k] for m in metas], dim=1)
 
     # Stage 1: top-K unique candidates by response.
     top_resp, order = torch.topk(cat("response"), Kf)
-    oct_s = cat("oct")[order]
-    lay_s = cat("lay")[order]
-    fx_s = cat("fx")[order]
-    fy_s = cat("fy")[order]
-    sig_s = cat("sigma")[order]
-    val_s = cat("valid")[order] & (top_resp > 0.0)
+    oct_s = take(cat("oct"), order)
+    lay_s = take(cat("lay"), order)
+    fx_s = take(cat("fx"), order)
+    fy_s = take(cat("fy"), order)
+    sig_s = take(cat("sigma"), order)
+    val_s = take(cat("valid"), order) & (top_resp > 0.0)
 
     sizes = [S * hh * ww for hh, ww in geoms]
     bases = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]), device=dev)
-    big_mag = torch.cat(mag_parts)
-    big_ang = torch.cat(ang_parts)
+    big_mag = torch.cat(mag_parts, dim=1).reshape(-1)
+    big_ang = torch.cat(ang_parts, dim=1).reshape(-1)
     hs = torch.as_tensor([g[0] for g in geoms], device=dev)
     ws = torch.as_tensor([g[1] for g in geoms], device=dev)
+    frame_base = (rows * sum(sizes)).expand(B, Kf).reshape(-1)
 
     def make_sample(oct_idx, lay_idx):
+        """Nearest taps of frame b's polar maps; oct_idx, lay_idx (B * Kf,)."""
         hk = hs[oct_idx][:, None]
         wk = ws[oct_idx][:, None]
-        plane = bases[oct_idx][:, None] + lay_idx[:, None] * hk * wk
+        plane = (frame_base + bases[oct_idx])[:, None] + lay_idx[:, None] * hk * wk
 
         def sample(sx, sy):
             ix = torch.clamp(torch.round(sx).to(torch.int64), min=torch.zeros_like(wk), max=wk - 1)
@@ -437,32 +471,36 @@ def detect_and_compute(image: torch.Tensor, cfg: FrontendConfig) -> Features:
 
         return sample
 
-    ang1, ang2, has2 = _orientation(make_sample(oct_s, lay_s), fx_s, fy_s, sig_s)
+    ang1, ang2, has2 = _orientation(make_sample(oct_s.reshape(-1), lay_s.reshape(-1)),
+                                    fx_s.reshape(-1), fy_s.reshape(-1), sig_s.reshape(-1))
+    ang1, ang2, has2 = (a.reshape(B, Kf) for a in (ang1, ang2, has2))
 
     # Stage 2: merge primary + secondary-orientation entries, re-top-K.
     zero = torch.zeros_like(top_resp)
     resp_all = torch.cat([torch.where(val_s, top_resp, zero),
-                          torch.where(val_s & has2, top_resp * 0.999999, zero)])
-    ang_all = torch.cat([ang1, ang2])
-    val_all = torch.cat([val_s, val_s & has2])
+                          torch.where(val_s & has2, top_resp * 0.999999, zero)], dim=1)
+    ang_all = torch.cat([ang1, ang2], dim=1)
+    val_all = torch.cat([val_s, val_s & has2], dim=1)
     base_idx = torch.cat([torch.arange(Kf, device=dev)] * 2)
     top_resp2, order2 = torch.topk(resp_all, Kf)
     sel = base_idx[order2]
-    oct_f = oct_s[sel]
-    fx_f = fx_s[sel]
-    fy_f = fy_s[sel]
-    sig_f = sig_s[sel]
-    ang_f = ang_all[order2]
-    val_f = val_all[order2] & (top_resp2 > 0.0)
+    oct_f = take(oct_s, sel)
+    fx_f = take(fx_s, sel)
+    fy_f = take(fy_s, sel)
+    sig_f = take(sig_s, sel)
+    ang_f = take(ang_all, order2)
+    val_f = take(val_all, order2) & (top_resp2 > 0.0)
 
-    desc = _descriptor(make_sample(oct_f, lay_s[sel]), fx_f, fy_f, sig_f, ang_f, cfg)
+    desc = _descriptor(make_sample(oct_f.reshape(-1), take(lay_s, sel).reshape(-1)),
+                       fx_f.reshape(-1), fy_f.reshape(-1), sig_f.reshape(-1),
+                       ang_f.reshape(-1), cfg)
     stoi = first_scale * torch.exp2(oct_f.to(torch.float32))
     return Features(
-        xy=torch.stack([fx_f, fy_f], dim=-1) * stoi[:, None],
+        xy=torch.stack([fx_f, fy_f], dim=-1) * stoi[..., None],
         scale=sig_f * stoi,
         angle=ang_f,
         response=top_resp2,
-        desc=desc,
+        desc=desc.reshape(B, Kf, -1),
         valid=val_f,
     )
 

@@ -32,10 +32,20 @@ from sfm_mvs_tpu_torch.utils import io, metrics
 @pytest.fixture(params=["native", "plain"])
 def write_path(request, monkeypatch):
     """Both packages on the native writer (where it builds), or both on the
-    numpy fallback (the native library marked unavailable)."""
+    numpy fallback (the native library marked unavailable).
+
+    Both loaders cache a failed build or dlopen. Under pytest-xdist,
+    tests/test_native.py asks for the library at collection in every worker
+    at once, and each of those `make`s links into the one output path, so a
+    worker may cache a failure that the finished build would not give. A
+    first False is therefore asked once more, with the caches cleared, at
+    test time, when those builds have ended."""
     if request.param == "native":
         if not (native.available() and jnative.available()):
-            pytest.skip("the native library does not build here (libjpeg/libpng headers)")
+            native._lib = None
+            jnative._lib = None
+            if not (native.available() and jnative.available()):
+                pytest.skip("the native library does not build here (libjpeg/libpng headers)")
     else:
         monkeypatch.setattr(native, "_lib", False)
         monkeypatch.setattr(jnative, "_lib", False)

@@ -145,3 +145,100 @@ def test_ratio_test_rounds_ratio_squared_to_float32(rng):
         np.testing.assert_array_equal(N(ok), want)
         n_double_differs += int(((d1 < ratio * ratio * dd2.astype(np.float64)) != (d1 < r2 * dd2)).sum())
     assert n_double_differs > 0  # the cases tell float32 rounding from float64
+
+
+def _batch(rng, B=4, n0=300, n1=300):
+    """B pairs of test_plain_matches_jax's "300x300" kind, with masks."""
+    cases = []
+    for _ in range(B):
+        d0 = _descs(rng, n0)
+        d1 = d0[rng.permutation(n0)[:n1]] + 0.01 * rng.standard_normal((n1, 128)).astype(np.float32)
+        d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+        cases.append((d0, d1, rng.random(n0) > 0.1, rng.random(n1) > 0.1))
+    return [np.stack(col) for col in zip(*cases)]
+
+
+@pytest.mark.parametrize("mutual", [False, True])
+def test_plain_batch_equals_single_calls_and_jax(rng, mutual):
+    """knn_match over a leading batch axis: each pair's row equals its own
+    call, and the JAX package's vmapped frontend.match_batch; the port's
+    frontend.match_batch (the batched kernel's wrapper on CPU tensors
+    without the mutual check) and match_with_config on a stack agree."""
+    from sfm_mvs_tpu.parallel import frontend as jfrontend
+    from sfm_mvs_tpu_torch.parallel import frontend
+
+    d0, d1, v0, v1 = _batch(rng)
+    ours = matching.knn_match(T(d0), T(d1), T(v0), T(v1), ratio=0.8, mutual=mutual)
+    assert ours.idx1.shape == (4, 300) and ours.valid.any()
+    for b in range(4):
+        one = matching.knn_match(T(d0[b]), T(d1[b]), T(v0[b]), T(v1[b]), ratio=0.8,
+                                 mutual=mutual)
+        for x, y in zip(ours, one):
+            np.testing.assert_array_equal(N(x[b]), N(y))
+    ref = jfrontend.match_batch(J(d0), J(d1), J(v0), J(v1), ratio=0.8, mutual=mutual)
+    cfg = FrontendConfig(mutual_check=mutual, lowe_ratio=0.8)
+    for other in (frontend.match_batch(T(d0), T(d1), T(v0), T(v1), 0.8, mutual),
+                  matching.match_with_config(T(d0), T(d1), T(v0), T(v1), cfg), ref):
+        for x, y in zip(ours, other):
+            np.testing.assert_array_equal(N(x), N(y))
+
+
+def test_cuda_batch_wrapper_on_cpu_tensors(rng):
+    """knn_match_cuda_batch returns the plain batched result on CPU tensors
+    and counts nothing; the raw launch refuses CPU tensors."""
+    d0, d1, v0, v1 = _batch(rng, B=3)
+    matching_cuda.reset_launches()
+    ours = matching_cuda.knn_match_cuda_batch(T(d0), T(d1), T(v0), T(v1), ratio=0.75)
+    plain = matching.knn_match(T(d0), T(d1), T(v0), T(v1), ratio=0.75)
+    for a, b in zip(ours, plain):
+        assert torch.equal(a, b)
+    assert (matching_cuda.launches, matching_cuda.batch_launches, matching_cuda.batch_pairs) == (
+        0, 0, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        matching_cuda.knn2_raw(T(d0), T(d1), T(v1))
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_plan_splits_with_a_batch(batch):
+    """With B pairs in the grid every column tile is still in exactly one
+    split; at the main path's 4096 x 4096, 8 pairs fill the card with one
+    split (8 x 32 row tiles = 256 blocks for 264 slots) where one pair
+    takes 8."""
+    for n0, n1 in ((4096, 4096), (2048, 2048), (300, 4097)):
+        col_tiles = -(-n1 // matching_cuda.TILE)
+        splits, per = matching_cuda.plan_splits(n0, n1, 132, batch)
+        covered = [t for s in range(splits) for t in range(s * per, min(col_tiles, (s + 1) * per))]
+        assert sorted(covered) == list(range(col_tiles))
+        assert all(s * per < col_tiles for s in range(splits))
+    # 32 pairs take 32 one-tile splits: 125 tile-steps per slot against 128
+    # for 4 waves of one split.
+    want = {1: (8, 4), 8: (1, 32), 32: (32, 1)}[batch]
+    assert matching_cuda.plan_splits(4096, 4096, 132, batch) == want
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_match_batch_pad_rows(rng, use_kernel):
+    """exhaustive._match_batch: live rows equal the pair's own match; pad
+    rows (pair_valid False) come back all invalid with idx1 0."""
+    from sfm_mvs_tpu_torch.models import exhaustive
+    from sfm_mvs_tpu_torch.ops.sift import Features
+    from sfm_mvs_tpu_torch.utils.config import SfmConfig
+
+    d0, d1, v0, v1 = _batch(rng)
+    xy = torch.zeros(4, 300, 2)
+    z = torch.zeros(4, 300)
+    fi = Features(xy, z, z, z, T(d0), T(v0))
+    fj = Features(xy, z, z, z, T(d1), T(v1))
+    cfg = SfmConfig(frontend=FrontendConfig(use_pallas_matcher=use_kernel, lowe_ratio=0.8))
+    live = torch.tensor([True, False, True, False])
+    m = exhaustive._match_batch(fi, fj, live, cfg)
+    for b in range(4):
+        if live[b]:
+            one = exhaustive._match(Features(*[f[b] for f in fi]), Features(*[f[b] for f in fj]),
+                                    cfg)
+            for x, y in zip(m, one):
+                assert torch.equal(x[b], y)
+            assert m.valid[b].any()
+        else:
+            assert not m.valid[b].any() and not m.idx1[b].any()
+            np.testing.assert_array_equal(N(m.idx0[b]), np.arange(300))

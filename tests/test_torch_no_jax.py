@@ -3,9 +3,9 @@
 In a fresh interpreter with ``jax`` and ``sfm_mvs_tpu`` blocked from import,
 every module of ``sfm_mvs_tpu_torch`` imports (the CLI, the native loader,
 MVS, the view graph and stitching, the five-point solver, the global
-pipeline, the LK tracker, the KLT pipeline and the profiling hooks among
-them), the CLI's parser takes the flags the GPU smoke run gives it, and a
-small detect + match runs on the CPU.
+pipeline, the LK tracker, the KLT pipeline, the profiling hooks and every
+module of ``parallel`` among them), the CLI's parser takes the flags the
+GPU smoke run gives it, and a small detect + match runs on the CPU.
 """
 
 import os
@@ -27,7 +27,9 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("cli", "native", "models.mvs", "models.exhaustive", "ops.five_point",
-                 "models.tracks", "ops.optical_flow", "models.klt", "utils.profiling"):
+                 "models.tracks", "ops.optical_flow", "models.klt", "utils.profiling",
+                 "parallel.mesh", "parallel.multihost", "parallel.consistency",
+                 "parallel.distributed_ba", "parallel.sharded_map", "parallel.frontend"):
         assert "sfm_mvs_tpu_torch." + name in names
     from sfm_mvs_tpu_torch import cli
     args = cli.build_parser().parse_args([
@@ -66,5 +68,5 @@ def test_port_imports_and_runs_without_jax():
                          env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, n_kp, n_matches = map(int, out.stdout.split())
-    assert n_modules >= 41
+    assert n_modules >= 48
     assert n_kp > 20 and n_matches > 10
