@@ -153,6 +153,33 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def k1_count_start() -> None:
+    """Count K1's launches from here: the port's tracer on and empty."""
+    from sfm_mvs_tpu_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable()
+
+
+def k1_counts(records=()) -> tuple:
+    """(single launches, batched launches, pairs of the batched launches)
+    since :func:`k1_count_start`, from the tracer's ``k1.*`` counters: what
+    it holds now plus what ``IncrementalSfM`` moved into its frame
+    `records` (``sfm.stats`` or metrics.jsonl's records: each frame's
+    record takes the frame's counters and resets the tracer). Turns the
+    tracer off."""
+    from sfm_mvs_tpu_torch.utils import profiling
+
+    totals = profiling.summary(profiling.export())["counters"]
+    for rec in records:
+        for name, v in rec.get("counters", {}).items():
+            totals[name] = totals.get(name, 0) + v
+    profiling.disable()
+    profiling.reset()
+    return tuple(int(totals.get(f"k1.{k}", 0)) for k in ("launches", "batch_launches",
+                                                           "batch_pairs"))
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the smoke run needs a GPU")
@@ -565,11 +592,10 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
     """bench.py's path on the card: per-frame BA, then the sweep. Returns
     K1's launches and the map before the sweep."""
     from sfm_mvs_tpu_torch.models import map_store
-    from sfm_mvs_tpu_torch.ops import matching_cuda
 
     stack8 = stage_u8(imgs)
     torch.cuda.reset_peak_memory_stats()
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     pstate, records = bench_frames(stack8, cfg)
     loop_s = time.perf_counter() - t0
@@ -589,7 +615,7 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
     state, info = bench_sweep(stack8, state, cfg)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = matching_cuda.launches
+    launches = k1_counts()[0]
     pts = state.points[state.point_valid].cpu().numpy()
     obs_after = int(map_store.num_observations(state))
     rms_sweep = float(np.sqrt(info["final_cost"]))
@@ -642,12 +668,11 @@ def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
     import dataclasses
 
     from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
-    from sfm_mvs_tpu_torch.ops import matching_cuda
     from sfm_mvs_tpu_torch.utils.config import BaConfig
 
     cfg_d = dataclasses.replace(sweep_config(cfg), ba=BaConfig(enabled=True, max_iterations=8))
     sfm = IncrementalSfM(cfg_d, device=DEVICE)
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     run_state = sfm.run(imgs)
     torch.cuda.synchronize()
@@ -658,7 +683,7 @@ def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
     state = sfm.finalize()
     torch.cuda.synchronize()
     fin_s = time.perf_counter() - t0
-    launches = matching_cuda.launches
+    launches = k1_counts(sfm.stats)[0]
 
     info = sfm.finalize_info
     errs = [s["reproj_error"] for s in sfm.stats]
@@ -697,15 +722,15 @@ def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
 def phase_main(imgs, Rt_gt, cfg):
     from sfm_mvs_tpu_torch.models import map_store
     from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
-    from sfm_mvs_tpu_torch.ops import matching_cuda, sift
+    from sfm_mvs_tpu_torch.ops import sift
 
     sfm = IncrementalSfM(cfg, device=DEVICE)
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     state = sfm.run(imgs)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = matching_cuda.launches
+    launches = k1_counts(sfm.stats)[0]
 
     n_cams, ate, rot = _pose_quality(state, Rt_gt)
     errs = [s["reproj_error"] for s in sfm.stats]
@@ -868,7 +893,6 @@ def phase_cli(Rt_gt):
     """The port's CLI in this process, so K1's counter covers its run."""
     from sfm_mvs_tpu_torch import cli, native
     from sfm_mvs_tpu_torch.models import incremental, mvs
-    from sfm_mvs_tpu_torch.ops import matching_cuda
     from sfm_mvs_tpu_torch.utils import io
     from sfm_mvs_tpu_torch.utils.config import SfmConfig, SweepConfig
 
@@ -877,7 +901,7 @@ def phase_cli(Rt_gt):
     args = cli_args(out, "--bootstrap", "auto", "--ba", "--ba-iterations", "8", "--finalize",
                     "--sweep", "--sweep-contrast", "0.0025", "--densify", "--no-gif")
     Sfm = incremental.IncrementalSfM
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     with StageClock([
         (native.ImageLoader, "get", "image load"), (Sfm, "run", "run"),
@@ -888,7 +912,6 @@ def phase_cli(Rt_gt):
         rc = cli.main(args)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = matching_cuda.launches
 
     n = len(os.listdir(FRAME_DIR))
     n_vals, n_poses, ate = _pose_csv_quality(f"{out}/pose.csv", Rt_gt)
@@ -897,6 +920,7 @@ def phase_cli(Rt_gt):
     os.remove(f"{out}/dense.ply")  # ~150 MB of ASCII; the copy back holds 64 MiB
     with open(f"{out}/metrics.jsonl") as fh:
         records = [json.loads(line) for line in fh]
+    launches = k1_counts(records)[0]
     events = sorted({r["event"] for r in records})
     pair = next(r["pair"] for r in records if r["event"] == "bootstrap_auto")
     map_points = next(r["points"] for r in records if r["event"] == "finalize")
@@ -938,26 +962,29 @@ def phase_resume():
     """Checkpoint every 20 frames, then resume from the last one into the
     same output: the resumed run must write the same pose.csv."""
     from sfm_mvs_tpu_torch import cli
-    from sfm_mvs_tpu_torch.ops import matching_cuda
     from sfm_mvs_tpu_torch.utils import checkpoint
 
     out = "chiprun_out/resume"
     shutil.rmtree(out, ignore_errors=True)
     args = cli_args(out, "--bootstrap", "seq", "--checkpoint-every", "20", "--no-gif")
     n = len(os.listdir(FRAME_DIR))
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     rc_a = cli.main(args)
     run_a_s = time.perf_counter() - t0
     with open(f"{out}/pose.csv", "rb") as fh:
         pose_a = fh.read()
+    with open(f"{out}/metrics.jsonl") as fh:  # run B rewrites it
+        launches = k1_counts([json.loads(line) for line in fh])[0]
     latest = checkpoint.latest_checkpoint(f"{out}/checkpoints")
+    k1_count_start()
     t0 = time.perf_counter()
     rc_b = cli.main(args + ["--resume"])
     run_b_s = time.perf_counter() - t0
     with open(f"{out}/pose.csv", "rb") as fh:
         pose_b = fh.read()
-    launches = matching_cuda.launches
+    with open(f"{out}/metrics.jsonl") as fh:
+        launches += k1_counts([json.loads(line) for line in fh])[0]
     expected = (n - 1) + (n - 1 - 40)
     log(f"[resume] run A rc {rc_a} in {run_a_s:.1f} s; run B (--resume from {latest}) "
         f"rc {rc_b} in {run_b_s:.1f} s; pose.csv {len(pose_a)} bytes, equal: "
@@ -1002,7 +1029,6 @@ def phase_loop_cli(Rt_gt):
     both ways, robust BA, duplicate merging) in finalize."""
     from sfm_mvs_tpu_torch import cli, native
     from sfm_mvs_tpu_torch.models import exhaustive, incremental
-    from sfm_mvs_tpu_torch.ops import matching_cuda
 
     out = "chiprun_out/loop"
     shutil.rmtree(out, ignore_errors=True)
@@ -1010,7 +1036,7 @@ def phase_loop_cli(Rt_gt):
                     "bilinear", "--ba", "--ba-iterations", "8", "--loop-close", "4",
                     "--finalize", "--no-gif")
     Sfm = incremental.IncrementalSfM
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     with StageClock([(native.ImageLoader, "get", "image load"), (Sfm, "run", "run"),
                      (Sfm, "finalize", "finalize"),
@@ -1020,12 +1046,12 @@ def phase_loop_cli(Rt_gt):
         rc = cli.main(args)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = matching_cuda.launches
 
     n = len(os.listdir(FRAME_DIR))
     n_vals, n_poses, ate = _pose_csv_quality(f"{out}/pose.csv", Rt_gt)
     with open(f"{out}/metrics.jsonl") as fh:
         records = [json.loads(line) for line in fh]
+    launches = k1_counts(records)[0]
     fin = next(r for r in records if r["event"] == "finalize")
     errs = [r["reproj_error"] for r in records if r["event"] == "frame"]
     loop_pairs = pairs.values[0] if pairs.values else []
@@ -1066,18 +1092,17 @@ def phase_intrinsics(cfg, renders):
     tests/test_distortion.py's k1 recovery) and the per-camera variant."""
     from sfm_mvs_tpu_torch.models import ba
     from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
-    from sfm_mvs_tpu_torch.ops import matching_cuda
 
     (imgs, Rt_gt, _), render_s = renders.get("distorted")
     # BA off, as in the test this mirrors: a per-frame pinhole BA absorbs
     # most of the distortion into the structure first (PERF.md, section 4).
     sfm = IncrementalSfM(cfg, device=DEVICE)
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     state = sfm.run(imgs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = matching_cuda.launches
+    launches = k1_counts(sfm.stats)[0]
     n_cams, ate0, _ = _pose_quality(state, Rt_gt)
     t0 = time.perf_counter()
     st_shared, stats, intr = ba.bundle_adjust_map_intrinsics(state, max_iterations=40, cg_iters=30)
@@ -1127,12 +1152,11 @@ def phase_global(cfg):
     from sfm_mvs_tpu_torch import cli
     from sfm_mvs_tpu_torch.models import ba
     from sfm_mvs_tpu_torch.models.tracks import GlobalSfM
-    from sfm_mvs_tpu_torch.ops import matching_cuda
     from sfm_mvs_tpu_torch.utils.synthetic import render_plane_sequence
 
     imgs, Rt_gt, _ = render_plane_sequence(**PLANE)
     F = len(imgs)
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     g = GlobalSfM(cfg, device=DEVICE)
     state = g.run(imgs, run_ba=True)
@@ -1164,7 +1188,7 @@ def phase_global(cfg):
     t0 = time.perf_counter()
     rc = cli.main(args)
     cli_s = time.perf_counter() - t0
-    launches = matching_cuda.launches
+    launches = k1_counts()[0]
     n_vals, n_poses, ate_cli = _pose_csv_quality(f"{out}/pose.csv", Rt_gt)
     shutil.rmtree(PLANE_DIR)
     expected = 2 * ((F - 1) + (F - 1))
@@ -1213,16 +1237,15 @@ def phase_klt(imgs, Rt_gt, cfg):
     """Phase 13: ``KltSfM(cfg, redetect_every=5, device="cuda")`` on phase
     4's frames; gates from tests/test_klt_pipeline.py and the JAX record."""
     from sfm_mvs_tpu_torch.models.klt import KltSfM
-    from sfm_mvs_tpu_torch.ops import matching_cuda
     from sfm_mvs_tpu_torch.utils import evaluate
 
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     k = KltSfM(cfg, redetect_every=5, device=DEVICE)
     state = k.run(imgs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = matching_cuda.launches
+    launches = k1_counts()[0]
     cv = state.cam_valid.cpu().numpy()
     poses = state.poses.cpu().numpy()[cv]
     n = len(poses)
@@ -1282,7 +1305,6 @@ def phase_stitch(renders):
     from sfm_mvs_tpu_torch.models import ba, exhaustive, map_store
     from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
     from sfm_mvs_tpu_torch.models.refine import finalize_map
-    from sfm_mvs_tpu_torch.ops import matching_cuda
     from sfm_mvs_tpu_torch.ops.sift import Features
     from sfm_mvs_tpu_torch.utils.config import (
         BaConfig, FrontendConfig, MapConfig, RansacConfig, SfmConfig,
@@ -1302,12 +1324,12 @@ def phase_stitch(renders):
     cfg_stitch = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac,
                                                                      essential_iters=512))
     sfm = IncrementalSfM(cfg, device=DEVICE)
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     state = sfm.run(imgs)
     torch.cuda.synchronize()
     reg_s = time.perf_counter() - t0
-    reg_launches = matching_cuda.launches
+    reg_launches = k1_counts(sfm.stats)[0]
     reg_map = state
     n_cams, ate_reg, _ = _pose_quality(state, Rt_gt)
     if n_cams != F:
@@ -1316,7 +1338,7 @@ def phase_stitch(renders):
         raise AssertionError(f"K1 launched {reg_launches} times in registration, expected {F - 1}")
 
     # The stitch, once after registration (camera i is frame i).
-    matching_cuda.reset_launches()
+    k1_count_start()
     t0 = time.perf_counter()
     cnt = exhaustive.covisibility_matrix(state, image_size=(W, H)).cpu().numpy()
     pairs = exhaustive.retrieve_stitch_pairs(
@@ -1355,8 +1377,7 @@ def phase_stitch(renders):
             reapply_first = int(ra.sum() + rb.sum())
     torch.cuda.synchronize()
     stitch_s = time.perf_counter() - t0
-    stitch_launches = matching_cuda.launches
-    batches, rows = matching_cuda.batch_launches, matching_cuda.batch_pairs
+    stitch_launches, batches, rows = k1_counts()
 
     # The finalize: compact, shrink, robust BA <-> re-apply, polish.
     t0 = time.perf_counter()
@@ -1704,7 +1725,7 @@ def _rank_job(rank, world, backend, port):
     frames = stack8.float() / 255.0
     cfg = main_config().frontend
     n = frames.shape[0]
-    matching_cuda.reset_launches()
+    k1_count_start()
     t = time.perf_counter()
     parts = []
     for s in range(0, n, DETECT_CHUNK):
@@ -1716,8 +1737,7 @@ def _rank_job(rank, world, backend, port):
     mt = frontend.match_pairs_sharded(feats, pairs, pairs + 1, m, cfg)
     torch.cuda.synchronize()
     out["frontend_s"] = time.perf_counter() - t
-    out["launches"] = (matching_cuda.launches, matching_cuda.batch_launches,
-                       matching_cuda.batch_pairs)
+    out["launches"] = k1_counts()
     out["detect"] = (feats.xy.cpu().numpy(), feats.valid.cpu().numpy())
     # The same features through single launches, one pair at a time.
     diff = 0

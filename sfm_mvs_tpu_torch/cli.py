@@ -11,7 +11,9 @@ falls back to the CPU.
 
 Outputs: sparse.ply (reference cleaning semantics), dense.ply with
 --densify, pose.csv, cameras.ply frusta, reproj_error.png, sfm.gif,
-metrics.jsonl; checkpoints every K frames with --checkpoint-every.
+metrics.jsonl (a record per frame, with the tracer's span self times and
+counters: ``utils/profiling.py``, on for the run); checkpoints every K
+frames with --checkpoint-every.
 reproj_error.png needs matplotlib and sfm.gif matplotlib and PIL: where
 one is missing, that file is skipped with a warning on stderr.
 """
@@ -170,6 +172,19 @@ def _optional_artifact(path: str, fn, *args, **kwargs) -> None:
 
 
 def main(argv=None) -> int:
+    from sfm_mvs_tpu_torch.utils import profiling
+
+    was_on = profiling.enabled()
+    profiling.enable()  # microseconds a span: metrics.jsonl carries them
+    try:
+        return _main(argv)
+    finally:
+        if not was_on:
+            profiling.disable()
+            profiling.reset()
+
+
+def _main(argv) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     dev = _device(args.device)

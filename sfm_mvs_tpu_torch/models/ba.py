@@ -40,6 +40,14 @@ and each CG step's W V^-1 W^T product. Per-point quantities (V, V^-1, the
 point back-substitution) stay local, and the accept test reads the reduced
 cost, so every rank takes the same LM branch. With ``group=None`` nothing
 is reduced and no arithmetic changes.
+
+Tracing: each entry point (``bundle_adjust_map``, ``bundle_adjust_window``
+and the intrinsics variants) is the span ``ba``; each LM iteration is a
+``ba.lm`` span, which counts ``ba.lm_steps`` (iterations run),
+``ba.active`` (steps under the damping cap) and ``ba.accepted`` (steps
+that lowered the cost), and holds the ``ba.cg`` span around the CG loop
+(``ba.cg_steps``). The step counters are the tensors the loop computes
+anyway: no extra device op.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import torch
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops import lie
 from sfm_mvs_tpu_torch.parallel import mesh as meshlib
+from sfm_mvs_tpu_torch.utils import profiling
 
 
 class BAProblem(NamedTuple):
@@ -407,17 +416,19 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
     z = precond(rr)
     p = z
     zero = torch.zeros((), dtype=g_c.dtype, device=g_c.device)
-    for _ in range(cg_iters):
-        Sp = S_apply(p)
-        denom = dot(p, Sp)
-        rz = dot(rr, z)
-        alpha = torch.where(denom.abs() < 1e-20, zero, rz / denom)
-        x = [xi + alpha * pi for xi, pi in zip(x, p)]
-        r_new = [ri + (-alpha) * si for ri, si in zip(rr, Sp)]
-        z_new = precond(r_new)
-        beta = torch.where(rz.abs() < 1e-20, zero, dot(r_new, z_new) / rz)
-        p = [zi + beta * pi for zi, pi in zip(z_new, p)]
-        rr, z = r_new, z_new
+    with profiling.span("ba.cg"):
+        profiling.count("ba.cg_steps", cg_iters)
+        for _ in range(cg_iters):
+            Sp = S_apply(p)
+            denom = dot(p, Sp)
+            rz = dot(rr, z)
+            alpha = torch.where(denom.abs() < 1e-20, zero, rz / denom)
+            x = [xi + alpha * pi for xi, pi in zip(x, p)]
+            r_new = [ri + (-alpha) * si for ri, si in zip(rr, Sp)]
+            z_new = precond(r_new)
+            beta = torch.where(rz.abs() < 1e-20, zero, dot(r_new, z_new) / rz)
+            p = [zi + beta * pi for zi, pi in zip(z_new, p)]
+            rr, z = r_new, z_new
 
     # Back-substitute the point updates: dp = V^-1 (g_p - W^T dc - Z dt).
     acc = Wt_dot(x[0])
@@ -456,22 +467,27 @@ def run_ba(prob: BAProblem, max_iterations: int = 20, cg_iters: int = 20,
     it = torch.zeros((), dtype=torch.int32, device=lam.device)
     accepted = torch.zeros_like(it)
     for _ in range(max_iterations):
-        active = lam < 1e5
-        dc, dp, dt = _lm_solve(prob, lam, cg_iters, huber_delta, refine_intrinsics, group)
-        cand = prob._replace(cam_params=prob.cam_params + dc, points=prob.points + dp,
-                             intr=prob.intr + dt if refine_intrinsics else prob.intr)
-        new_cost = _cost(cand, huber_delta, group)
-        improve = new_cost < cost
-        take = active & improve
-        prob = prob._replace(
-            cam_params=torch.where(take, cand.cam_params, prob.cam_params),
-            points=torch.where(take, cand.points, prob.points),
-            intr=torch.where(take, cand.intr, prob.intr) if refine_intrinsics else prob.intr)
-        stepped = torch.where(improve, lam / damping_down, lam * damping_up)
-        lam = torch.where(active, torch.clamp(stepped, 1e-9, 1e6), lam)
-        cost = torch.where(take, new_cost, cost)
-        it = it + active.to(torch.int32)
-        accepted = accepted + take.to(torch.int32)
+        with profiling.span("ba.lm"):
+            active = lam < 1e5
+            dc, dp, dt = _lm_solve(prob, lam, cg_iters, huber_delta, refine_intrinsics, group)
+            cand = prob._replace(cam_params=prob.cam_params + dc, points=prob.points + dp,
+                                 intr=prob.intr + dt if refine_intrinsics else prob.intr)
+            new_cost = _cost(cand, huber_delta, group)
+            improve = new_cost < cost
+            take = active & improve
+            prob = prob._replace(
+                cam_params=torch.where(take, cand.cam_params, prob.cam_params),
+                points=torch.where(take, cand.points, prob.points),
+                intr=torch.where(take, cand.intr, prob.intr) if refine_intrinsics else prob.intr)
+            stepped = torch.where(improve, lam / damping_down, lam * damping_up)
+            lam = torch.where(active, torch.clamp(stepped, 1e-9, 1e6), lam)
+            cost = torch.where(take, new_cost, cost)
+            step, took = active.to(torch.int32), take.to(torch.int32)
+            it = it + step
+            accepted = accepted + took
+            profiling.count("ba.lm_steps")
+            profiling.count("ba.active", step)
+            profiling.count("ba.accepted", took)
     return prob, BAStats(initial_cost=cost0, final_cost=cost, iterations=it,
                          accepted=accepted)
 
@@ -481,10 +497,11 @@ def bundle_adjust_map(state: MapState, max_iterations: int = 20, cg_iters: int =
                       huber_delta: float = 0.0):
     """Map -> BA -> map. local_window > 0 = sliding local BA; huber_delta
     > 0 = robustified residuals (pixels). Returns (MapState, BAStats)."""
-    prob = problem_from_map(state, frozen_first=frozen_first, local_window=local_window)
-    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
-                         huber_delta=huber_delta)
-    return write_back_to_map(state, prob), stats
+    with profiling.span("ba"):
+        prob = problem_from_map(state, frozen_first=frozen_first, local_window=local_window)
+        prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
+                             huber_delta=huber_delta)
+        return write_back_to_map(state, prob), stats
 
 
 def _window_problem(state: MapState, window_cams: int, window_points: int,
@@ -550,10 +567,11 @@ def bundle_adjust_window(state: MapState, window_cams: int = 16,
     than 2 in-window observations are excluded and written back unchanged.
     Returns (MapState, BAStats).
     """
-    prob, cut = _window_problem(state, window_cams, window_points, freeze_cams)
-    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
-                         huber_delta=huber_delta)
-    return _window_write_back(state, prob, cut), stats
+    with profiling.span("ba"):
+        prob, cut = _window_problem(state, window_cams, window_points, freeze_cams)
+        prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
+                             huber_delta=huber_delta)
+        return _window_write_back(state, prob, cut), stats
 
 
 def bundle_adjust_map_percam_intrinsics(state: MapState, max_iterations: int = 20,
@@ -568,20 +586,21 @@ def bundle_adjust_map_percam_intrinsics(state: MapState, max_iterations: int = 2
 
     Returns (state, stats, intr_percam (C, 3)).
     """
-    rvec, tvec = lie.matrix_to_rt(state.poses)
-    dev = state.points.device
-    cam_params = torch.cat([rvec, tvec, torch.zeros_like(rvec)], dim=-1)
-    prob = BAProblem(
-        cam_params=cam_params, points=state.points, cam_valid=state.cam_valid,
-        point_valid=state.point_valid, obs_uv=state.obs_uv, obs_mask=state.obs_mask,
-        K=state.K, frozen=torch.arange(state.poses.shape[0], device=dev) < frozen_first,
-        intr=torch.tensor(_INTR_IDENTITY, dtype=state.points.dtype, device=dev),
-    )
-    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
-                         huber_delta=huber_delta)
-    intr_percam = prob.cam_params[:, 6:] + torch.tensor(
-        [1.0, 0.0, 0.0], dtype=prob.cam_params.dtype, device=dev)
-    return write_back_to_map(state, prob), stats, intr_percam
+    with profiling.span("ba"):
+        rvec, tvec = lie.matrix_to_rt(state.poses)
+        dev = state.points.device
+        cam_params = torch.cat([rvec, tvec, torch.zeros_like(rvec)], dim=-1)
+        prob = BAProblem(
+            cam_params=cam_params, points=state.points, cam_valid=state.cam_valid,
+            point_valid=state.point_valid, obs_uv=state.obs_uv, obs_mask=state.obs_mask,
+            K=state.K, frozen=torch.arange(state.poses.shape[0], device=dev) < frozen_first,
+            intr=torch.tensor(_INTR_IDENTITY, dtype=state.points.dtype, device=dev),
+        )
+        prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
+                             huber_delta=huber_delta)
+        intr_percam = prob.cam_params[:, 6:] + torch.tensor(
+            [1.0, 0.0, 0.0], dtype=prob.cam_params.dtype, device=dev)
+        return write_back_to_map(state, prob), stats, intr_percam
 
 
 def bundle_adjust_map_intrinsics(state: MapState, max_iterations: int = 20,
@@ -592,12 +611,13 @@ def bundle_adjust_map_intrinsics(state: MapState, max_iterations: int = 20,
     the map's K (fx, skew, fy); the full block comes back for the caller to
     undistort with or record. Returns (state, stats, intr (3,)).
     """
-    prob = problem_from_map(state, frozen_first=frozen_first)
-    prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
-                         huber_delta=huber_delta, refine_intrinsics=True)
-    state = write_back_to_map(state, prob)
-    s = prob.intr[0]
-    one = torch.ones_like(s)
-    scale = torch.stack([torch.stack([s, s, one]), torch.stack([one, s, one]),
-                         torch.stack([one, one, one])])
-    return state._replace(K=state.K * scale), stats, prob.intr
+    with profiling.span("ba"):
+        prob = problem_from_map(state, frozen_first=frozen_first)
+        prob, stats = run_ba(prob, max_iterations=max_iterations, cg_iters=cg_iters,
+                             huber_delta=huber_delta, refine_intrinsics=True)
+        state = write_back_to_map(state, prob)
+        s = prob.intr[0]
+        one = torch.ones_like(s)
+        scale = torch.stack([torch.stack([s, s, one]), torch.stack([one, s, one]),
+                             torch.stack([one, one, one])])
+        return state._replace(K=state.K * scale), stats, prob.intr

@@ -32,6 +32,7 @@ from sfm_mvs_tpu_torch.models.two_view import bootstrap
 from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift, triangulation
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.parallel import frontend
+from sfm_mvs_tpu_torch.utils import profiling
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
 
 
@@ -88,28 +89,30 @@ def init_from_bootstrap(gen, feats0: Features, feats1: Features, image1_bgr, K,
     """Run the two-view bootstrap and materialize the initial map.
 
     Returns (PipelineState, FrameStats), and with `return_track0` also the
-    track-id vector of frame 0's feature slots.
+    track-id vector of frame 0's feature slots. Traced as the span
+    ``bootstrap`` (its stages: ``two_view.bootstrap``).
     """
-    tv = bootstrap(gen, feats0, feats1, K, cfg)
-    state = map_store.init_map(K, cfg.map, device=K.device)
-    state, cam0 = map_store.append_camera(state, tv.pose0)
-    state, cam1 = map_store.append_camera(state, tv.pose1)
-    colors = _sample_colors(image1_bgr, tv.uv1)
-    state, pids = map_store.append_points(state, tv.points, colors, tv.valid)
-    state = map_store.append_observations(state, cam0, pids, tv.uv0, tv.valid)
-    state = map_store.append_observations(state, cam1, pids, tv.uv1, tv.valid)
-    track = _track_vector(feats1.xy.shape[0], tv.idx1, tv.valid, pids)
-    n_valid = tv.valid.sum()
-    stats = FrameStats(
-        num_matches=tv.num_matches, num_tracked=n_valid,
-        num_pnp_inliers=tv.num_inliers, num_new_points=n_valid,
-        reproj_error=tv.reproj_error,
-        accepted=torch.ones((), dtype=torch.bool, device=K.device),
-    )
-    pstate = PipelineState(map=state, prev_feats=feats1, prev_track=track)
-    if return_track0:
-        return pstate, stats, _track_vector(feats0.xy.shape[0], tv.idx0, tv.valid, pids)
-    return pstate, stats
+    with profiling.span("bootstrap"):
+        tv = bootstrap(gen, feats0, feats1, K, cfg)
+        state = map_store.init_map(K, cfg.map, device=K.device)
+        state, cam0 = map_store.append_camera(state, tv.pose0)
+        state, cam1 = map_store.append_camera(state, tv.pose1)
+        colors = _sample_colors(image1_bgr, tv.uv1)
+        state, pids = map_store.append_points(state, tv.points, colors, tv.valid)
+        state = map_store.append_observations(state, cam0, pids, tv.uv0, tv.valid)
+        state = map_store.append_observations(state, cam1, pids, tv.uv1, tv.valid)
+        track = _track_vector(feats1.xy.shape[0], tv.idx1, tv.valid, pids)
+        n_valid = tv.valid.sum()
+        stats = FrameStats(
+            num_matches=tv.num_matches, num_tracked=n_valid,
+            num_pnp_inliers=tv.num_inliers, num_new_points=n_valid,
+            reproj_error=tv.reproj_error,
+            accepted=torch.ones((), dtype=torch.bool, device=K.device),
+        )
+        pstate = PipelineState(map=state, prev_feats=feats1, prev_track=track)
+        if return_track0:
+            return pstate, stats, _track_vector(feats0.xy.shape[0], tv.idx0, tv.valid, pids)
+        return pstate, stats
 
 
 def _select(accepted: torch.Tensor, new, old):
@@ -134,7 +137,17 @@ def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
     bootstrap pair in both directions. Returns (PipelineState, FrameStats);
     a frame with too few PnP inliers is rejected and the input state
     returned unchanged.
+
+    Traced as the span ``register`` (counter ``register.tracked``), with
+    the children ``register.match`` (step 1), ``register.pnp`` (step 3),
+    ``register.triangulate`` (the new points' DLT, audit and merge, steps 5
+    and 5b) and ``register.append`` (the map appends, twice a frame).
     """
+    with profiling.span("register"):
+        return _register_frame(gen, pstate, new_feats, image_bgr, cfg, anchor_cam)
+
+
+def _register_frame(gen, pstate, new_feats, image_bgr, cfg, anchor_cam):
     fc, rc = cfg.frontend, cfg.ransac
     state = pstate.map
     K = state.K
@@ -142,70 +155,79 @@ def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
     P = state.points.shape[0]
 
     # 1. Match previous frame -> new frame.
-    m = matching.match_with_config(prev.desc, new_feats.desc, prev.valid, new_feats.valid, fc)
-    uv_prev, uv_new, mvalid = matching.gather_match_points(prev.xy, new_feats.xy, m)
+    with profiling.span("register.match"):
+        m = matching.match_with_config(prev.desc, new_feats.desc, prev.valid, new_feats.valid,
+                                       fc)
+        uv_prev, uv_new, mvalid = matching.gather_match_points(prev.xy, new_feats.xy, m)
 
     # 2. Split into tracked (have 3D) / untracked.
     tids = pstate.prev_track[m.idx0.long()]
     safe_tids = torch.clamp(tids, 0, P - 1).long()
     tracked = mvalid & (tids >= 0) & state.point_valid[safe_tids]
     X_tracked = state.points[safe_tids]
+    num_tracked = tracked.sum()
+    profiling.count("register.tracked", num_tracked)
 
     # 3. PnP-RANSAC on the 2D-3D correspondences.
-    uv_new_norm = projection.normalize_points(uv_new, K)
-    pnp_res = ransac.ransac_pnp(
-        gen, X_tracked, uv_new, uv_new_norm, tracked, K,
-        threshold_px=rc.pnp_threshold_px, iters=rc.pnp_iters, use_p3p=rc.pnp_use_p3p)
+    with profiling.span("register.pnp"):
+        uv_new_norm = projection.normalize_points(uv_new, K)
+        pnp_res = ransac.ransac_pnp(
+            gen, X_tracked, uv_new, uv_new_norm, tracked, K,
+            threshold_px=rc.pnp_threshold_px, iters=rc.pnp_iters, use_p3p=rc.pnp_use_p3p)
     pose_new = pnp_res.model
-    state, cam_new = map_store.append_camera(state, pose_new)
-    prev_cam = cam_new - 1 if anchor_cam is None else torch.as_tensor(
-        anchor_cam, dtype=cam_new.dtype, device=cam_new.device)
-    pose_prev = state.poses[prev_cam.long()]
+    with profiling.span("register.append"):
+        state, cam_new = map_store.append_camera(state, pose_new)
+        prev_cam = cam_new - 1 if anchor_cam is None else torch.as_tensor(
+            anchor_cam, dtype=cam_new.dtype, device=cam_new.device)
+        pose_prev = state.poses[prev_cam.long()]
 
-    # 4. Observations of existing points in the new frame (PnP inliers).
-    state = map_store.append_observations(state, cam_new, tids, uv_new, pnp_res.inliers)
+        # 4. Observations of existing points in the new frame (PnP inliers).
+        state = map_store.append_observations(state, cam_new, tids, uv_new, pnp_res.inliers)
     err_tracked = projection.masked_mean_reprojection_error(
         X_tracked, uv_new, pose_new, K, pnp_res.inliers)
 
     # 5. Triangulate brand-new points from untracked matches.
-    untracked = mvalid & (tids < 0)
-    X_new = triangulation.triangulate_euclidean(K @ pose_prev, K @ pose_new, uv_prev, uv_new)
-    d0, d1 = triangulation.triangulation_depths(pose_prev, pose_new, X_new)
-    e_prev = torch.linalg.norm(
-        projection.reprojection_residuals(X_new, uv_prev, pose_prev, K), dim=-1)
-    e_new = torch.linalg.norm(
-        projection.reprojection_residuals(X_new, uv_new, pose_new, K), dim=-1)
-    good_new = (untracked & (d0 > 0) & (d1 > 0)
-                & (e_prev < rc.pnp_threshold_px) & (e_new < rc.pnp_threshold_px))
+    with profiling.span("register.triangulate"):
+        untracked = mvalid & (tids < 0)
+        X_new = triangulation.triangulate_euclidean(K @ pose_prev, K @ pose_new, uv_prev, uv_new)
+        d0, d1 = triangulation.triangulation_depths(pose_prev, pose_new, X_new)
+        e_prev = torch.linalg.norm(
+            projection.reprojection_residuals(X_new, uv_prev, pose_prev, K), dim=-1)
+        e_new = torch.linalg.norm(
+            projection.reprojection_residuals(X_new, uv_new, pose_new, K), dim=-1)
+        good_new = (untracked & (d0 > 0) & (d1 > 0)
+                    & (e_prev < rc.pnp_threshold_px) & (e_new < rc.pnp_threshold_px))
 
-    # 5b. Re-observation merging: a "new" candidate that projects onto a
-    # recent map point in this camera with consistent depth extends that
-    # point's track instead of duplicating it.
-    merge_tid = torch.full(good_new.shape, -1, dtype=torch.int32, device=K.device)
-    if rc.merge_reobservations:
-        Wm = min(rc.merge_window, P)
-        start = torch.clamp(state.num_points - Wm, 0, P - Wm)
-        win = start + torch.arange(Wm, dtype=torch.int32, device=K.device)
-        win_pts = state.points[win.long()]
-        win_valid = state.point_valid[win.long()]
-        win_uv, win_depth = projection.project_depth(win_pts, pose_new, K)
-        win_ok = win_valid & (win_depth > 0)
-        d2_px = ((uv_new * uv_new).sum(1, keepdim=True)
-                 + (win_uv * win_uv).sum(1)[None, :]
-                 - 2.0 * uv_new @ win_uv.T)
-        d2_px = torch.where(win_ok[None, :], d2_px, torch.full_like(d2_px, float("inf")))
-        nearest = torch.argmin(d2_px, dim=1)
-        dmin = d2_px.min(dim=1).values
-        near_depth = win_depth[nearest]
-        depth_ok = (near_depth - d1).abs() < rc.merge_depth_rel * torch.clamp_min(near_depth, 1e-6)
-        merged = good_new & (dmin < rc.merge_px ** 2) & depth_ok
-        merge_tid = torch.where(merged, win[nearest], merge_tid)
-        good_new = good_new & ~merged
-        state = map_store.append_observations(state, cam_new, merge_tid, uv_new, merged)
-    colors = _sample_colors(image_bgr, uv_new)
-    state, new_pids = map_store.append_points(state, X_new, colors, good_new)
-    state = map_store.append_observations(state, prev_cam, new_pids, uv_prev, good_new)
-    state = map_store.append_observations(state, cam_new, new_pids, uv_new, good_new)
+        # 5b. Re-observation merging: a "new" candidate that projects onto a
+        # recent map point in this camera with consistent depth extends that
+        # point's track instead of duplicating it.
+        merge_tid = torch.full(good_new.shape, -1, dtype=torch.int32, device=K.device)
+        if rc.merge_reobservations:
+            Wm = min(rc.merge_window, P)
+            start = torch.clamp(state.num_points - Wm, 0, P - Wm)
+            win = start + torch.arange(Wm, dtype=torch.int32, device=K.device)
+            win_pts = state.points[win.long()]
+            win_valid = state.point_valid[win.long()]
+            win_uv, win_depth = projection.project_depth(win_pts, pose_new, K)
+            win_ok = win_valid & (win_depth > 0)
+            d2_px = ((uv_new * uv_new).sum(1, keepdim=True)
+                     + (win_uv * win_uv).sum(1)[None, :]
+                     - 2.0 * uv_new @ win_uv.T)
+            d2_px = torch.where(win_ok[None, :], d2_px, torch.full_like(d2_px, float("inf")))
+            nearest = torch.argmin(d2_px, dim=1)
+            dmin = d2_px.min(dim=1).values
+            near_depth = win_depth[nearest]
+            depth_ok = ((near_depth - d1).abs()
+                        < rc.merge_depth_rel * torch.clamp_min(near_depth, 1e-6))
+            merged = good_new & (dmin < rc.merge_px ** 2) & depth_ok
+            merge_tid = torch.where(merged, win[nearest], merge_tid)
+            good_new = good_new & ~merged
+            state = map_store.append_observations(state, cam_new, merge_tid, uv_new, merged)
+    with profiling.span("register.append"):
+        colors = _sample_colors(image_bgr, uv_new)
+        state, new_pids = map_store.append_points(state, X_new, colors, good_new)
+        state = map_store.append_observations(state, prev_cam, new_pids, uv_prev, good_new)
+        state = map_store.append_observations(state, cam_new, new_pids, uv_new, good_new)
     err_new = projection.masked_mean_reprojection_error(X_new, uv_new, pose_new, K, good_new)
 
     # 6. Track ids for the new frame's feature slots.
@@ -221,7 +243,7 @@ def register_frame(gen, pstate: PipelineState, new_feats: Features, image_bgr,
     accepted = pnp_res.num_inliers >= rc.min_pnp_inliers
     stats = FrameStats(
         num_matches=mvalid.sum(),
-        num_tracked=tracked.sum(),
+        num_tracked=num_tracked,
         num_pnp_inliers=pnp_res.num_inliers,
         num_new_points=torch.where(accepted, good_new.sum(), torch.zeros_like(good_new.sum())),
         reproj_error=0.5 * (err_tracked + err_new),
@@ -262,7 +284,8 @@ class IncrementalSfM:
     (``bootstrap="auto"``), bundle adjustment every ``cfg.ba.cadence``
     frames (global or windowed), a checkpoint every ``checkpoint_every``
     frames and resume from one, per-frame records to ``metrics`` (a
-    ``utils.metrics.MetricsLogger``), and ``finalize`` (compact, loop
+    ``utils.metrics.MetricsLogger``; with the tracer on, each record also
+    holds the frame's span self times and counters), and ``finalize`` (compact, loop
     closure, cull + global BA with duplicate merging, the densification
     sweep, BA of the intrinsics).
     """
@@ -602,6 +625,14 @@ class IncrementalSfM:
             "accepted": bool(st.accepted),
             "wall_s": wall_s,
         }
+        if profiling.enabled():
+            # The tracer's spans and counters since the last record (this
+            # frame's detection, registration and BA), then a fresh start.
+            traced = profiling.summary(profiling.export())
+            d["spans"] = {name: {"calls": v["calls"], "self_ms": v["self_ms"]}
+                          for name, v in traced["spans"].items()}
+            d["counters"] = traced["counters"]
+            profiling.reset()
         self.stats.append(d)
         if self.metrics is not None:
             self.metrics.log(event="frame", **d)

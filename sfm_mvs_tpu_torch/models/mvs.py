@@ -23,8 +23,6 @@ mesh (``densify_map(mesh=...)``) waits for ROADMAP A13.
 
 from __future__ import annotations
 
-import os
-import time
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -34,6 +32,7 @@ import torch.nn.functional as F
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops import projection as proj
 from sfm_mvs_tpu_torch.parallel import mesh as meshlib
+from sfm_mvs_tpu_torch.utils import profiling
 
 # torch.nanquantile refuses inputs of more than 2**24 elements; the
 # per-camera depth quantiles run over row chunks below that size.
@@ -548,108 +547,113 @@ def densify_map(images_gray: Sequence, state: MapState, num_depths: int = 64,
     Returns (points (N, 3), colors (N, 3)) as float32 numpy arrays, ready
     for io.to_ply, and with `return_depth_maps` also {frame: DepthMap} of
     the filtered, fused depth maps.
+
+    Traced as the span ``mvs`` (counter ``mvs.views``, the reference views)
+    with the children ``mvs.ranges`` (the depth ranges), ``mvs.stage`` (the
+    images to the device), ``mvs.sweep`` (one per pass-1 chunk),
+    ``mvs.fuse`` (one per pass-2 chunk) and ``mvs.copy`` (the chunk's cloud
+    to the host).
     """
-    if mesh is not None:
-        mesh = meshlib.as_mesh(mesh)
-        batch = -(-max(batch, mesh.size) // mesh.size) * mesh.size
-        mine = meshlib.block(batch, mesh)
-    n_total = int(state.num_cams)
-    n_cams = n_total if max_refs is None else min(n_total, max_refs)
-    K = state.K
-    dev = K.device
+    with profiling.span("mvs"):
+        if mesh is not None:
+            mesh = meshlib.as_mesh(mesh)
+            batch = -(-max(batch, mesh.size) // mesh.size) * mesh.size
+            mine = meshlib.block(batch, mesh)
+        n_total = int(state.num_cams)
+        n_cams = n_total if max_refs is None else min(n_total, max_refs)
+        K = state.K
+        dev = K.device
 
-    def neighbors(r, hi=n_total, k=None):
-        k = num_neighbors if k is None else k
-        return [i for i in range(max(0, r - k), min(hi, r + k + 1)) if i != r]
+        def neighbors(r, hi=n_total, k=None):
+            k = num_neighbors if k is None else k
+            return [i for i in range(max(0, r - k), min(hi, r + k + 1)) if i != r]
 
-    geo_k = max(num_neighbors, geo_num_neighbors)
-    profile = os.environ.get("MVS_PROFILE", "0") == "1"
+        geo_k = max(num_neighbors, geo_num_neighbors)
+        profiling.count("mvs.views", n_cams)
+        with profiling.span("mvs.ranges"):
+            lo_all, hi_all = _depth_ranges(state)
+        # Pass 1 warps neighbor IMAGES (full-set neighbors reach past the swept
+        # refs); stage only the frames actually touched.
+        with profiling.span("mvs.stage"):
+            imgs_dev = _stage(images_gray, min(n_total, n_cams + num_neighbors), dev)
+        M = max(len(neighbors(r)) for r in range(n_total))
 
-    def mark(label):
-        if profile:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            print(f"[mvs] {label}: {time.time() - mark.t0:.1f}s", flush=True)
-            mark.t0 = time.time()
+        # Pass 1: depth maps, one batched sweep per chunk of refs.
+        depth_maps: dict[int, DepthMap] = {}
+        refs = list(range(n_cams))
+        for s in range(0, len(refs), batch):
+            chunk = refs[s:s + batch]
+            chunk_p = chunk + [chunk[-1]] * (batch - len(chunk))
+            # Pad each ref's neighbor list to M by repeating its first neighbor
+            # (a duplicated view only re-votes the same evidence).
+            nbr_idx = [(neighbors(r) + [neighbors(r)[0]] * M)[:M] for r in chunk_p]
+            if mesh is not None:  # this rank's slots of the batch
+                chunk_p, nbr_idx = chunk_p[mine], nbr_idx[mine]
+            with profiling.span("mvs.sweep"):
+                idx = torch.as_tensor(chunk_p, device=dev)
+                dms = _plane_sweep_batch(
+                    torch.stack([imgs_dev[r] for r in chunk_p]),
+                    torch.stack([torch.stack([imgs_dev[i] for i in nn]) for nn in nbr_idx]),
+                    state.poses[idx], state.poses[torch.as_tensor(nbr_idx, device=dev)], K,
+                    lo_all[idx], hi_all[idx], num_depths=num_depths, dist=dist)
+                if mesh is not None:  # every rank's slots, in slot order
+                    dms = DepthMap(*[meshlib.all_gather(x, mesh).flatten(0, 1) for x in dms])
+            for j, r in enumerate(chunk):
+                depth_maps[r] = DepthMap(*[x[j] for x in dms])
 
-    mark.t0 = time.time()
-    lo_all, hi_all = _depth_ranges(state)
-    # Pass 1 warps neighbor IMAGES (full-set neighbors reach past the swept
-    # refs); stage only the frames actually touched.
-    imgs_dev = _stage(images_gray, min(n_total, n_cams + num_neighbors), dev)
-    M = max(len(neighbors(r)) for r in range(n_total))
-
-    # Pass 1: depth maps, one batched sweep per chunk of refs.
-    depth_maps: dict[int, DepthMap] = {}
-    refs = list(range(n_cams))
-    for s in range(0, len(refs), batch):
-        chunk = refs[s:s + batch]
-        chunk_p = chunk + [chunk[-1]] * (batch - len(chunk))
-        # Pad each ref's neighbor list to M by repeating its first neighbor
-        # (a duplicated view only re-votes the same evidence).
-        nbr_idx = [(neighbors(r) + [neighbors(r)[0]] * M)[:M] for r in chunk_p]
-        if mesh is not None:  # this rank's slots of the batch
-            chunk_p, nbr_idx = chunk_p[mine], nbr_idx[mine]
-        idx = torch.as_tensor(chunk_p, device=dev)
-        dms = _plane_sweep_batch(
-            torch.stack([imgs_dev[r] for r in chunk_p]),
-            torch.stack([torch.stack([imgs_dev[i] for i in nn]) for nn in nbr_idx]),
-            state.poses[idx], state.poses[torch.as_tensor(nbr_idx, device=dev)], K,
-            lo_all[idx], hi_all[idx], num_depths=num_depths, dist=dist)
-        if mesh is not None:  # every rank's slots, in slot order
-            dms = DepthMap(*[meshlib.all_gather(x, mesh).flatten(0, 1) for x in dms])
-        for j, r in enumerate(chunk):
-            depth_maps[r] = DepthMap(*[x[j] for x in dms])
-    mark("pass1 sweeps")
-
-    # Pass 2: cross-view consistency + fusion, in chunks of `batch` refs,
-    # the pass-1 chunk. Each ref's check holds ~15 float planes per
-    # neighbor (2 * geo_k of them), so a chunk of 4 at 968x648 holds
-    # 4 * 8 * 15 planes of 2.5 MB, ~1.2 GB: far inside an 80 GB card. The
-    # JAX package caps this chunk at 2 for a v5e fault that does not
-    # apply here.
-    M2 = 2 * geo_k
-    depth_stack = torch.stack([depth_maps[r].depth for r in refs])
-    conf_stack = torch.stack([depth_maps[r].confidence for r in refs])
-    valid_stack = torch.stack([depth_maps[r].valid for r in refs])
-    colors = images_bgr if images_bgr is not None else images_gray
-    colors_dev = _stage(colors, n_cams, dev)
-    gray = images_bgr is None
-    all_pts, all_cols = [], []
-    filtered: dict[int, DepthMap] = {}
-    for s in range(0, len(refs), batch):
-        chunk = refs[s:s + batch]
-        chunk_p = chunk + [chunk[-1]] * (batch - len(chunk))
-        # Neighbor DEPTH MAPS exist only for swept refs; padded slots are
-        # masked out of the vote by nbr_valid.
-        nbrs_l = [[i for i in neighbors(r, k=geo_k) if i < n_cams] for r in chunk_p]
-        nbr_idx = [((nn or [r]) + [(nn or [r])[0]] * M2)[:M2] for nn, r in zip(nbrs_l, chunk_p)]
-        nbr_valid = np.zeros((batch, M2), bool)
-        for j, nn in enumerate(nbrs_l):
-            nbr_valid[j, :len(nn)] = True
-        min_cons = torch.as_tensor([min(geo_min_consistent, len(nn)) for nn in nbrs_l],
-                                   dtype=torch.int32, device=dev)
-        idx = torch.as_tensor(chunk_p, device=dev)
-        nidx = torch.as_tensor(nbr_idx, device=dev)
-        pts_b, cols_b, ok_b, vmap_b, fused_b = _fuse_batch(
-            depth_stack[idx], conf_stack[idx], valid_stack[idx], state.poses[idx],
-            depth_stack[nidx], state.poses[nidx], torch.as_tensor(nbr_valid, device=dev),
-            min_cons, K, torch.stack([colors_dev[r] for r in chunk_p]), geo_rel_tol,
-            stride=stride, geometric_check=geometric_check, dist=dist,
-            fuse_depths=fuse_depths, edge_trim_rel=float(edge_trim_rel),
-            free_space_rel=float(free_space_rel), edge_trim_radius=int(edge_trim_radius),
-            edge_keep_conf=float(edge_keep_conf), min_conf=float(min_conf), gray=gray)
-        for j, r in enumerate(chunk):
-            all_pts.append(pts_b[j][ok_b[j]].cpu().numpy())
-            all_cols.append(cols_b[j][ok_b[j]].cpu().numpy())
-            filtered[r] = DepthMap(depth=fused_b[j], confidence=depth_maps[r].confidence,
-                                   valid=vmap_b[j])
-    mark("pass2 fuse")
-    if not all_pts:
-        pts = np.zeros((0, 3), np.float32)
-        cols = np.zeros((0, 3), np.float32)
-    else:
-        pts, cols = np.concatenate(all_pts), np.concatenate(all_cols)
-    if return_depth_maps:
-        return pts, cols, filtered
-    return pts, cols
+        # Pass 2: cross-view consistency + fusion, in chunks of `batch` refs,
+        # the pass-1 chunk. Each ref's check holds ~15 float planes per
+        # neighbor (2 * geo_k of them), so a chunk of 4 at 968x648 holds
+        # 4 * 8 * 15 planes of 2.5 MB, ~1.2 GB: far inside an 80 GB card. The
+        # JAX package caps this chunk at 2 for a v5e fault that does not
+        # apply here.
+        M2 = 2 * geo_k
+        depth_stack = torch.stack([depth_maps[r].depth for r in refs])
+        conf_stack = torch.stack([depth_maps[r].confidence for r in refs])
+        valid_stack = torch.stack([depth_maps[r].valid for r in refs])
+        colors = images_bgr if images_bgr is not None else images_gray
+        with profiling.span("mvs.stage"):
+            colors_dev = _stage(colors, n_cams, dev)
+        gray = images_bgr is None
+        all_pts, all_cols = [], []
+        filtered: dict[int, DepthMap] = {}
+        for s in range(0, len(refs), batch):
+            chunk = refs[s:s + batch]
+            chunk_p = chunk + [chunk[-1]] * (batch - len(chunk))
+            # Neighbor DEPTH MAPS exist only for swept refs; padded slots are
+            # masked out of the vote by nbr_valid.
+            nbrs_l = [[i for i in neighbors(r, k=geo_k) if i < n_cams] for r in chunk_p]
+            nbr_idx = [((nn or [r]) + [(nn or [r])[0]] * M2)[:M2]
+                       for nn, r in zip(nbrs_l, chunk_p)]
+            nbr_valid = np.zeros((batch, M2), bool)
+            for j, nn in enumerate(nbrs_l):
+                nbr_valid[j, :len(nn)] = True
+            with profiling.span("mvs.fuse"):
+                min_cons = torch.as_tensor([min(geo_min_consistent, len(nn)) for nn in nbrs_l],
+                                           dtype=torch.int32, device=dev)
+                idx = torch.as_tensor(chunk_p, device=dev)
+                nidx = torch.as_tensor(nbr_idx, device=dev)
+                pts_b, cols_b, ok_b, vmap_b, fused_b = _fuse_batch(
+                    depth_stack[idx], conf_stack[idx], valid_stack[idx], state.poses[idx],
+                    depth_stack[nidx], state.poses[nidx], torch.as_tensor(nbr_valid, device=dev),
+                    min_cons, K, torch.stack([colors_dev[r] for r in chunk_p]), geo_rel_tol,
+                    stride=stride, geometric_check=geometric_check, dist=dist,
+                    fuse_depths=fuse_depths, edge_trim_rel=float(edge_trim_rel),
+                    free_space_rel=float(free_space_rel),
+                    edge_trim_radius=int(edge_trim_radius),
+                    edge_keep_conf=float(edge_keep_conf), min_conf=float(min_conf), gray=gray)
+            with profiling.span("mvs.copy"):
+                for j, r in enumerate(chunk):
+                    all_pts.append(pts_b[j][ok_b[j]].cpu().numpy())
+                    all_cols.append(cols_b[j][ok_b[j]].cpu().numpy())
+            for j, r in enumerate(chunk):
+                filtered[r] = DepthMap(depth=fused_b[j], confidence=depth_maps[r].confidence,
+                                       valid=vmap_b[j])
+        if not all_pts:
+            pts = np.zeros((0, 3), np.float32)
+            cols = np.zeros((0, 3), np.float32)
+        else:
+            pts, cols = np.concatenate(all_pts), np.concatenate(all_cols)
+        if return_depth_maps:
+            return pts, cols, filtered
+        return pts, cols

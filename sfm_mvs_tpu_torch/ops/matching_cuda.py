@@ -43,6 +43,7 @@ from pathlib import Path
 import torch
 
 from sfm_mvs_tpu_torch.ops.matching import Matches, knn_match, squared_norms
+from sfm_mvs_tpu_torch.utils import profiling
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "knn2.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -50,14 +51,6 @@ _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-
-# Launches of the CUDA kernel since the last reset (one per wrapper call
-# that launched it; CPU calls do not count): single-pair launches
-# (knn_match_cuda, knn2_raw), batched launches (knn_match_cuda_batch, one
-# per call) and the pairs those batched launches matched.
-launches = 0
-batch_launches = 0
-batch_pairs = 0
 
 # The kernel's block tile and widest descriptor (checked against the
 # library's own when it loads), and the blocks it keeps resident per SM
@@ -69,11 +62,6 @@ BLOCKS_PER_SM = 2
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
-
-
-def reset_launches() -> None:
-    global launches, batch_launches, batch_pairs
-    launches = batch_launches = batch_pairs = 0
 
 
 def _nvcc() -> str:
@@ -173,11 +161,21 @@ def _sm_count(idx: int) -> int:
 
 def _launch(desc0, desc1, valid1, valid0=None, ratio=0.0):
     """Both kernels, for one pair (2-D descriptors) or a batch of pairs
-    (3-D, leading axis B); one launch counted, in ``launches`` or
-    ``batch_launches``. Returns (work, jj, ok): d1 and d2 are the last
+    (3-D, leading axis B). Returns (work, jj, ok): d1 and d2 are the last
     2 * B * N0 floats of `work` (after the per-split partials), jj (2, [B,]
-    N0) holds idx0 and j1, ok the ratio test (None without `valid0`)."""
-    global launches, batch_launches, batch_pairs
+    N0) holds idx0 and j1, ok the ratio test (None without `valid0`).
+
+    Traced as the span ``k1``, with the counters ``k1.launches`` (single
+    pairs) or ``k1.batch_launches`` and ``k1.batch_pairs``, ``k1.slots``
+    (the rows x columns the launch sweeps) and ``k1.valid_pairs`` (valid
+    rows x valid columns, summed over the pairs: five small device ops on
+    the H100 beside the call's six, only while the tracer is on).
+    """
+    with profiling.span("k1"):
+        return _launch_kernels(desc0, desc1, valid1, valid0, ratio)
+
+
+def _launch_kernels(desc0, desc1, valid1, valid0, ratio):
     nd = desc0.dim()
     if nd not in (2, 3):
         raise ValueError(f"desc0 must be (N0, D) or (B, N0, D), got {tuple(desc0.shape)}")
@@ -229,11 +227,15 @@ def _launch(desc0, desc1, valid1, valid0=None, ratio=0.0):
     )
     if err != 0:
         raise RuntimeError(f"knn2 kernel launch failed with CUDA error {err}")
-    if nd == 3:
-        batch_launches += 1
-        batch_pairs += b
-    else:
-        launches += 1
+    if profiling.enabled():
+        if nd == 3:
+            profiling.count("k1.batch_launches")
+            profiling.count("k1.batch_pairs", b)
+        else:
+            profiling.count("k1.launches")
+        profiling.count("k1.slots", b * n0 * n1)
+        pairs = (n0 if valid0 is None else valid0.sum(-1)) * valid1.sum(-1)
+        profiling.count("k1.valid_pairs", pairs if nd == 2 else pairs.sum())
     return work, jj, ok
 
 
@@ -283,7 +285,7 @@ def knn_match_cuda_batch(
 
     desc0 (B, N0, D), desc1 (B, N1, D), valid0 (B, N0), valid1 (B, N1).
     On CUDA tensors it launches the kernels once for the batch (counted in
-    ``batch_launches``; ``batch_pairs`` grows by B) and raises on anything
+    ``k1.batch_launches``; ``k1.batch_pairs`` grows by B) and raises on anything
     but contiguous float32 descriptors and bool masks; each pair's outputs
     equal its single launch's. On CPU tensors it returns the plain batched
     version's result.

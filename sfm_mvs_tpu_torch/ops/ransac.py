@@ -11,6 +11,10 @@ Random samples come from a ``torch.Generator``. Every estimator also takes
 optional injected sample indices (``sample_idx``...), which the parity
 tests fill with the JAX package's ``_sample_indices`` output so that both
 packages score the same hypotheses.
+
+Each estimator counts, in the tracer's innermost open span, the hypotheses
+it scored (``ransac.hypotheses``) and the inliers it returns
+(``ransac.inliers``, the returned count itself: no extra device op).
 """
 
 from __future__ import annotations
@@ -20,12 +24,22 @@ from typing import NamedTuple, Optional
 import torch
 
 from sfm_mvs_tpu_torch.ops import epipolar, five_point, homography, masking, p3p, pnp
+from sfm_mvs_tpu_torch.utils import profiling
 
 
 class RansacResult(NamedTuple):
     model: torch.Tensor  # best model parameters
     inliers: torch.Tensor  # (N,) boolean inlier mask (in original order)
     num_inliers: torch.Tensor  # scalar int
+
+
+def _counted(model, inliers: torch.Tensor, hypotheses: int) -> RansacResult:
+    """The result, its hypotheses and inliers counted in the tracer."""
+    n = inliers.sum(-1)
+    if profiling.enabled():
+        profiling.count("ransac.hypotheses", hypotheses)
+        profiling.count("ransac.inliers", n if n.dim() == 0 else n.sum())
+    return RansacResult(model, inliers, n)
 
 
 def _sample_indices(gen: Optional[torch.Generator], iters: int, sample_size: int,
@@ -102,7 +116,7 @@ def ransac_essential(gen, norm0, norm1, mask, focal, threshold_px: float = 1.0,
         better = (inl2.sum() > inliers.sum()) & inliers.any()
         E = torch.where(better, E2, E)
         inliers = torch.where(better, inl2, inliers)
-    return RansacResult(E, inliers, inliers.sum())
+    return _counted(E, inliers, Es.shape[0])
 
 
 def ransac_essential_batch(gen, norm0, norm1, mask, focal, threshold_px: float = 1.0,
@@ -144,7 +158,7 @@ def ransac_essential_batch(gen, norm0, norm1, mask, focal, threshold_px: float =
         better = (inl2.sum(-1) > inliers.sum(-1)) & inliers.any(-1)
         E = torch.where(better[:, None, None], E2, E)
         inliers = torch.where(better[:, None], inl2, inliers)
-    return RansacResult(E, inliers, inliers.sum(-1))
+    return _counted(E, inliers, Es.shape[0] * Es.shape[1])
 
 
 def ransac_pnp(gen, X, uv_pix, uv_norm, mask, K, threshold_px: float = 4.0,
@@ -197,7 +211,7 @@ def ransac_pnp(gen, X, uv_pix, uv_norm, mask, K, threshold_px: float = 4.0,
         keep = inl2.sum() * 2 >= inliers.sum()
         Rt = torch.where(keep, Rt2, Rt)
         inliers = torch.where(keep, inl2, inliers)
-    return RansacResult(Rt, inliers, inliers.sum())
+    return _counted(Rt, inliers, Rts.shape[0])
 
 
 def ransac_homography(gen, pts1, pts2, mask, threshold_px: float = 4.0,
@@ -219,4 +233,4 @@ def ransac_homography(gen, pts1, pts2, mask, threshold_px: float = 4.0,
     for _ in range(refit_rounds):
         H = homography.homography_dlt(pts1, pts2, inliers.to(pts1.dtype))
         inliers = (homography.transfer_error(H, pts1, pts2) < threshold_px) & mask
-    return RansacResult(H, inliers, inliers.sum())
+    return _counted(H, inliers, Hs.shape[0])

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from sfm_mvs_tpu_torch.ops import pyramid
+from sfm_mvs_tpu_torch.utils import profiling
 from sfm_mvs_tpu_torch.utils.config import FrontendConfig
 
 _TWO_PI = 2.0 * math.pi
@@ -346,9 +347,20 @@ def detect_batch(images: torch.Tensor, cfg: FrontendConfig) -> Features:
     ``"bilinear"`` every octave candidate gets its orientations and both
     descriptors from bilinearly interpolated (dx, dy) maps, and one global
     top-K over all octaves' primary and secondary entries picks the result.
+
+    Traced as the span ``detect`` (counter ``detect.frames``), its stages
+    as ``detect.scale_space`` (pyramid and DoG), ``detect.keypoints``
+    (extrema, refinement, top-K) and ``detect.describe`` (gradients,
+    orientations, descriptors), once per octave and once after.
     """
     if cfg.grad_sampling not in ("nearest_polar", "bilinear"):
         raise ValueError(f"unknown grad_sampling {cfg.grad_sampling!r}")
+    with profiling.span("detect"):
+        profiling.count("detect.frames", images.shape[0])
+        return _detect_batch(images, cfg)
+
+
+def _detect_batch(images: torch.Tensor, cfg: FrontendConfig) -> Features:
     deferred = cfg.grad_sampling == "nearest_polar"
     dev = images.device
     B = images.shape[0]
@@ -365,63 +377,67 @@ def detect_batch(images: torch.Tensor, cfg: FrontendConfig) -> Features:
     per_octave = []  # bilinear path: (primary, secondary) Features per octave
     cur = base
     for o in range(cfg.num_octaves):
-        blur_in = assumed if o == 0 else cfg.sigma0
-        gauss = pyramid.gaussian_scale_space(
-            cur, sigma0=cfg.sigma0, scales_per_octave=S, assumed_blur=blur_in)
-        dog = gauss[:, 1:] - gauss[:, :-1]
-        response, (dx, dy, ds) = _octave_candidates(dog, cfg)
+        with profiling.span("detect.scale_space"):
+            if o:
+                cur = pyramid.subsample2(gauss[:, S])
+            blur_in = assumed if o == 0 else cfg.sigma0
+            gauss = pyramid.gaussian_scale_space(
+                cur, sigma0=cfg.sigma0, scales_per_octave=S, assumed_blur=blur_in)
+            dog = gauss[:, 1:] - gauss[:, :-1]
         h, w = cur.shape[-2:]
-
-        pad = _pad_edge(gauss[:, 1:S + 1])
-        gdx = 0.5 * (pad[..., 1:-1, 2:] - pad[..., 1:-1, :-2])
-        gdy = 0.5 * (pad[..., 2:, 1:-1] - pad[..., :-2, 1:-1])
-        if deferred:
-            mag, ang = _polar_planes(gdx, gdy)
-            mag_parts.append(mag.reshape(B, -1))
-            ang_parts.append(ang.reshape(B, -1))
-            geoms.append((h, w))
-
-        top_resp, top_idx = torch.topk(response.reshape(B, -1), budgets[o])
-        lay = top_idx // (h * w)
-        rem = top_idx % (h * w)
-        iy = rem // w
-        ix = rem % w
-        fx = ix.to(torch.float32) + torch.gather(dx.reshape(B, -1), 1, top_idx)
-        fy = iy.to(torch.float32) + torch.gather(dy.reshape(B, -1), 1, top_idx)
-        fs = lay.to(torch.float32) + torch.gather(ds.reshape(B, -1), 1, top_idx)
-        sigma_oct = cfg.sigma0 * torch.exp2((fs + 1.0) / S)
-        desc_rad = 3.0 * sigma_oct * (cfg.descriptor_width / 2.0) * math.sqrt(2.0)
-        inside = (fx > desc_rad) & (fx < w - 1 - desc_rad) & (fy > desc_rad) & (fy < h - 1 - desc_rad)
-        valid = (top_resp > 0.0) & inside
-        zero = torch.zeros_like(top_resp)
-        if deferred:
-            metas.append(dict(
-                oct=torch.full(lay.shape, o, dtype=torch.int64, device=dev), lay=lay,
-                fx=fx, fy=fy, sigma=sigma_oct, valid=valid,
-                response=torch.where(valid, top_resp, zero),
-            ))
-        else:
-            # Frame b's layer l is plane b * S + l of the stacked maps.
-            sample = _bilinear_sampler(
-                torch.stack([gdx, gdy]).reshape(2, B * S, h, w), (rows * S + lay).reshape(-1))
-            fxf, fyf, sgf = fx.reshape(-1), fy.reshape(-1), sigma_oct.reshape(-1)
-            ang1, ang2, has2 = _orientation(sample, fxf, fyf, sgf)
-            ang1, ang2, has2 = (a.reshape(B, -1) for a in (ang1, ang2, has2))
-            valid2 = valid & has2  # secondary-orientation duplicates
-            stoi = first_scale * (2.0 ** o)
-            xy = torch.stack([fx, fy], dim=-1) * stoi
-            sc = sigma_oct * stoi
-            per_octave.append(Features(
-                xy=xy, scale=sc, angle=ang1, response=torch.where(valid, top_resp, zero),
-                desc=_descriptor(sample, fxf, fyf, sgf, ang1.reshape(-1), cfg).reshape(B, budgets[o], -1),
-                valid=valid))
-            # Down-weighted infinitesimally, so primaries win top-K ties.
-            per_octave.append(Features(
-                xy=xy, scale=sc, angle=ang2,
-                response=torch.where(valid2, top_resp * 0.999999, zero),
-                desc=_descriptor(sample, fxf, fyf, sgf, ang2.reshape(-1), cfg).reshape(B, budgets[o], -1),
-                valid=valid2))
-        cur = pyramid.subsample2(gauss[:, S])
+        with profiling.span("detect.keypoints"):
+            response, (dx, dy, ds) = _octave_candidates(dog, cfg)
+            top_resp, top_idx = torch.topk(response.reshape(B, -1), budgets[o])
+            lay = top_idx // (h * w)
+            rem = top_idx % (h * w)
+            iy = rem // w
+            ix = rem % w
+            fx = ix.to(torch.float32) + torch.gather(dx.reshape(B, -1), 1, top_idx)
+            fy = iy.to(torch.float32) + torch.gather(dy.reshape(B, -1), 1, top_idx)
+            fs = lay.to(torch.float32) + torch.gather(ds.reshape(B, -1), 1, top_idx)
+            sigma_oct = cfg.sigma0 * torch.exp2((fs + 1.0) / S)
+            desc_rad = 3.0 * sigma_oct * (cfg.descriptor_width / 2.0) * math.sqrt(2.0)
+            inside = ((fx > desc_rad) & (fx < w - 1 - desc_rad) & (fy > desc_rad)
+                      & (fy < h - 1 - desc_rad))
+            valid = (top_resp > 0.0) & inside
+            zero = torch.zeros_like(top_resp)
+        with profiling.span("detect.describe"):
+            pad = _pad_edge(gauss[:, 1:S + 1])
+            gdx = 0.5 * (pad[..., 1:-1, 2:] - pad[..., 1:-1, :-2])
+            gdy = 0.5 * (pad[..., 2:, 1:-1] - pad[..., :-2, 1:-1])
+            if deferred:
+                mag, ang = _polar_planes(gdx, gdy)
+                mag_parts.append(mag.reshape(B, -1))
+                ang_parts.append(ang.reshape(B, -1))
+                geoms.append((h, w))
+                metas.append(dict(
+                    oct=torch.full(lay.shape, o, dtype=torch.int64, device=dev), lay=lay,
+                    fx=fx, fy=fy, sigma=sigma_oct, valid=valid,
+                    response=torch.where(valid, top_resp, zero),
+                ))
+            else:
+                # Frame b's layer l is plane b * S + l of the stacked maps.
+                sample = _bilinear_sampler(
+                    torch.stack([gdx, gdy]).reshape(2, B * S, h, w), (rows * S + lay).reshape(-1))
+                fxf, fyf, sgf = fx.reshape(-1), fy.reshape(-1), sigma_oct.reshape(-1)
+                ang1, ang2, has2 = _orientation(sample, fxf, fyf, sgf)
+                ang1, ang2, has2 = (a.reshape(B, -1) for a in (ang1, ang2, has2))
+                valid2 = valid & has2  # secondary-orientation duplicates
+                stoi = first_scale * (2.0 ** o)
+                xy = torch.stack([fx, fy], dim=-1) * stoi
+                sc = sigma_oct * stoi
+                per_octave.append(Features(
+                    xy=xy, scale=sc, angle=ang1, response=torch.where(valid, top_resp, zero),
+                    desc=_descriptor(sample, fxf, fyf, sgf, ang1.reshape(-1), cfg).reshape(
+                        B, budgets[o], -1),
+                    valid=valid))
+                # Down-weighted infinitesimally, so primaries win top-K ties.
+                per_octave.append(Features(
+                    xy=xy, scale=sc, angle=ang2,
+                    response=torch.where(valid2, top_resp * 0.999999, zero),
+                    desc=_descriptor(sample, fxf, fyf, sgf, ang2.reshape(-1), cfg).reshape(
+                        B, budgets[o], -1),
+                    valid=valid2))
 
     Kf = cfg.max_features
 
@@ -430,79 +446,83 @@ def detect_batch(images: torch.Tensor, cfg: FrontendConfig) -> Features:
 
     if not deferred:
         # One global top-K over every octave's primary and secondary entries.
-        allf = Features(*[torch.cat(col, dim=1) for col in zip(*per_octave)])
-        top_resp, order = torch.topk(allf.response, Kf)
-        return Features(xy=take(allf.xy, order), scale=take(allf.scale, order),
-                        angle=take(allf.angle, order), response=top_resp,
-                        desc=take(allf.desc, order),
-                        valid=take(allf.valid, order) & (top_resp > 0.0))
+        with profiling.span("detect.keypoints"):
+            allf = Features(*[torch.cat(col, dim=1) for col in zip(*per_octave)])
+            top_resp, order = torch.topk(allf.response, Kf)
+            return Features(xy=take(allf.xy, order), scale=take(allf.scale, order),
+                            angle=take(allf.angle, order), response=top_resp,
+                            desc=take(allf.desc, order),
+                            valid=take(allf.valid, order) & (top_resp > 0.0))
 
     def cat(k):
         return torch.cat([m[k] for m in metas], dim=1)
 
     # Stage 1: top-K unique candidates by response.
-    top_resp, order = torch.topk(cat("response"), Kf)
-    oct_s = take(cat("oct"), order)
-    lay_s = take(cat("lay"), order)
-    fx_s = take(cat("fx"), order)
-    fy_s = take(cat("fy"), order)
-    sig_s = take(cat("sigma"), order)
-    val_s = take(cat("valid"), order) & (top_resp > 0.0)
+    with profiling.span("detect.keypoints"):
+        top_resp, order = torch.topk(cat("response"), Kf)
+        oct_s = take(cat("oct"), order)
+        lay_s = take(cat("lay"), order)
+        fx_s = take(cat("fx"), order)
+        fy_s = take(cat("fy"), order)
+        sig_s = take(cat("sigma"), order)
+        val_s = take(cat("valid"), order) & (top_resp > 0.0)
+    with profiling.span("detect.describe"):
+        sizes = [S * hh * ww for hh, ww in geoms]
+        bases = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]), device=dev)
+        big_mag = torch.cat(mag_parts, dim=1).reshape(-1)
+        big_ang = torch.cat(ang_parts, dim=1).reshape(-1)
+        hs = torch.as_tensor([g[0] for g in geoms], device=dev)
+        ws = torch.as_tensor([g[1] for g in geoms], device=dev)
+        frame_base = (rows * sum(sizes)).expand(B, Kf).reshape(-1)
 
-    sizes = [S * hh * ww for hh, ww in geoms]
-    bases = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]), device=dev)
-    big_mag = torch.cat(mag_parts, dim=1).reshape(-1)
-    big_ang = torch.cat(ang_parts, dim=1).reshape(-1)
-    hs = torch.as_tensor([g[0] for g in geoms], device=dev)
-    ws = torch.as_tensor([g[1] for g in geoms], device=dev)
-    frame_base = (rows * sum(sizes)).expand(B, Kf).reshape(-1)
+        def make_sample(oct_idx, lay_idx):
+            """Nearest taps of frame b's polar maps; oct_idx, lay_idx (B * Kf,)."""
+            hk = hs[oct_idx][:, None]
+            wk = ws[oct_idx][:, None]
+            plane = (frame_base + bases[oct_idx])[:, None] + lay_idx[:, None] * hk * wk
 
-    def make_sample(oct_idx, lay_idx):
-        """Nearest taps of frame b's polar maps; oct_idx, lay_idx (B * Kf,)."""
-        hk = hs[oct_idx][:, None]
-        wk = ws[oct_idx][:, None]
-        plane = (frame_base + bases[oct_idx])[:, None] + lay_idx[:, None] * hk * wk
+            def sample(sx, sy):
+                ix = torch.clamp(torch.round(sx).to(torch.int64), min=torch.zeros_like(wk),
+                                 max=wk - 1)
+                iy = torch.clamp(torch.round(sy).to(torch.int64), min=torch.zeros_like(hk),
+                                 max=hk - 1)
+                idx = plane + iy * wk + ix
+                return big_mag[idx].to(torch.float32), big_ang[idx].to(torch.float32)
 
-        def sample(sx, sy):
-            ix = torch.clamp(torch.round(sx).to(torch.int64), min=torch.zeros_like(wk), max=wk - 1)
-            iy = torch.clamp(torch.round(sy).to(torch.int64), min=torch.zeros_like(hk), max=hk - 1)
-            idx = plane + iy * wk + ix
-            return big_mag[idx].to(torch.float32), big_ang[idx].to(torch.float32)
+            return sample
 
-        return sample
+        ang1, ang2, has2 = _orientation(make_sample(oct_s.reshape(-1), lay_s.reshape(-1)),
+                                        fx_s.reshape(-1), fy_s.reshape(-1), sig_s.reshape(-1))
+        ang1, ang2, has2 = (a.reshape(B, Kf) for a in (ang1, ang2, has2))
 
-    ang1, ang2, has2 = _orientation(make_sample(oct_s.reshape(-1), lay_s.reshape(-1)),
-                                    fx_s.reshape(-1), fy_s.reshape(-1), sig_s.reshape(-1))
-    ang1, ang2, has2 = (a.reshape(B, Kf) for a in (ang1, ang2, has2))
+        # Stage 2: merge primary + secondary-orientation entries, re-top-K.
+        zero = torch.zeros_like(top_resp)
+        resp_all = torch.cat([torch.where(val_s, top_resp, zero),
+                              torch.where(val_s & has2, top_resp * 0.999999, zero)], dim=1)
+        ang_all = torch.cat([ang1, ang2], dim=1)
+        val_all = torch.cat([val_s, val_s & has2], dim=1)
+        base_idx = torch.cat([torch.arange(Kf, device=dev)] * 2)
+        top_resp2, order2 = torch.topk(resp_all, Kf)
+        sel = base_idx[order2]
+        oct_f = take(oct_s, sel)
+        fx_f = take(fx_s, sel)
+        fy_f = take(fy_s, sel)
+        sig_f = take(sig_s, sel)
+        ang_f = take(ang_all, order2)
+        val_f = take(val_all, order2) & (top_resp2 > 0.0)
 
-    # Stage 2: merge primary + secondary-orientation entries, re-top-K.
-    zero = torch.zeros_like(top_resp)
-    resp_all = torch.cat([torch.where(val_s, top_resp, zero),
-                          torch.where(val_s & has2, top_resp * 0.999999, zero)], dim=1)
-    ang_all = torch.cat([ang1, ang2], dim=1)
-    val_all = torch.cat([val_s, val_s & has2], dim=1)
-    base_idx = torch.cat([torch.arange(Kf, device=dev)] * 2)
-    top_resp2, order2 = torch.topk(resp_all, Kf)
-    sel = base_idx[order2]
-    oct_f = take(oct_s, sel)
-    fx_f = take(fx_s, sel)
-    fy_f = take(fy_s, sel)
-    sig_f = take(sig_s, sel)
-    ang_f = take(ang_all, order2)
-    val_f = take(val_all, order2) & (top_resp2 > 0.0)
-
-    desc = _descriptor(make_sample(oct_f.reshape(-1), take(lay_s, sel).reshape(-1)),
-                       fx_f.reshape(-1), fy_f.reshape(-1), sig_f.reshape(-1),
-                       ang_f.reshape(-1), cfg)
-    stoi = first_scale * torch.exp2(oct_f.to(torch.float32))
-    return Features(
-        xy=torch.stack([fx_f, fy_f], dim=-1) * stoi[..., None],
-        scale=sig_f * stoi,
-        angle=ang_f,
-        response=top_resp2,
-        desc=desc.reshape(B, Kf, -1),
-        valid=val_f,
-    )
+        desc = _descriptor(make_sample(oct_f.reshape(-1), take(lay_s, sel).reshape(-1)),
+                           fx_f.reshape(-1), fy_f.reshape(-1), sig_f.reshape(-1),
+                           ang_f.reshape(-1), cfg)
+        stoi = first_scale * torch.exp2(oct_f.to(torch.float32))
+        return Features(
+            xy=torch.stack([fx_f, fy_f], dim=-1) * stoi[..., None],
+            scale=sig_f * stoi,
+            angle=ang_f,
+            response=top_resp2,
+            desc=desc.reshape(B, Kf, -1),
+            valid=val_f,
+        )
 
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:

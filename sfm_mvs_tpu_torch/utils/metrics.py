@@ -1,13 +1,10 @@
 """Structured per-frame metrics: JSONL log + summaries.
 
-PyTorch port of ``sfm_mvs_tpu/utils/metrics.py``, with the same records
-and summary. Every frame emits a structured record (inliers, reprojection
-error, point counts, BA convergence, wall time) to an append-only JSONL
+PyTorch port of ``sfm_mvs_tpu/utils/metrics.py``, with the same records.
+Every frame emits a structured record (inliers, reprojection error, point
+counts, BA convergence, wall time; with the tracer of ``utils/profiling.py``
+on, the frame's span self times and counters) to an append-only JSONL
 file, plus an in-memory aggregate for end-of-run summaries.
-
-``StageTimer`` synchronizes the CUDA device before each clock reading when
-given one: kernel launches are asynchronous, so an unsynchronized reading
-would time the launches, not the work.
 """
 
 from __future__ import annotations
@@ -16,8 +13,6 @@ import json
 import os
 import time
 from typing import Any, Optional
-
-import torch
 
 
 class MetricsLogger:
@@ -38,45 +33,21 @@ class MetricsLogger:
         return rec
 
     def summary(self) -> dict[str, Any]:
+        """Frame count, reprojection errors, mean frame time, and the rate:
+        frames over the wall time from the first frame's start (its log
+        time less its ``wall_s``) to the last frame's end (its log time),
+        so the time between frames counts."""
         frames = [r for r in self.records if r.get("event") == "frame"]
         if not frames:
             return {"frames": 0}
         errs = [r["reproj_error"] for r in frames if "reproj_error" in r]
-        times = [r["wall_s"] for r in frames if "wall_s" in r]
+        timed = [r for r in frames if "wall_s" in r]
+        times = [r["wall_s"] for r in timed]
+        span_s = timed[-1]["ts"] - (timed[0]["ts"] - timed[0]["wall_s"]) if timed else 0.0
         return {
             "frames": len(frames),
             "mean_reproj_error": sum(errs) / max(len(errs), 1),
             "max_reproj_error": max(errs) if errs else None,
             "mean_frame_s": sum(times) / max(len(times), 1) if times else None,
-            "frames_per_s": len(times) / sum(times) if times else None,
+            "frames_per_s": len(timed) / span_s if span_s > 0 else None,
         }
-
-
-class StageTimer:
-    """Context-manager accumulator for per-stage wall times.
-
-    device: a CUDA device to synchronize before each clock reading (None or
-    a CPU device: no synchronization).
-    """
-
-    def __init__(self, device=None):
-        self.stages: dict[str, float] = {}
-        dev = torch.device(device) if device is not None else None
-        self._cuda = dev if dev is not None and dev.type == "cuda" else None
-
-    def _now(self) -> float:
-        if self._cuda is not None:
-            torch.cuda.synchronize(self._cuda)
-        return time.time()
-
-    def stage(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = timer._now()
-
-            def __exit__(self, *exc):
-                timer.stages[name] = timer.stages.get(name, 0.0) + timer._now() - self.t0
-
-        return _Ctx()

@@ -76,6 +76,12 @@ def test_cli_end_to_end(frames, tmp_path, bootstrap):
     assert {"frame", "ba", "finalize"} <= events
     assert ("bootstrap_auto" in events) == (bootstrap == "auto")
     assert sum(r["event"] == "frame" for r in records) == N_FRAMES - 1
+    # The tracer, on for the run: each frame's spans and counters.
+    regs = [r for r in records if r["event"] == "frame"][1:]  # after the bootstrap's
+    assert all(r["spans"]["register"]["calls"] == 1 and r["counters"]["ba.lm_steps"] == 5
+               for r in regs)
+    if bootstrap == "seq":  # auto detects every frame before the view graph
+        assert all(r["counters"]["detect.frames"] == 1 for r in regs)
 
     assert len(np.loadtxt(out / "pose.csv")) == 9 + 12 * N_FRAMES
     K, P = io.load_pose_csv(str(out / "pose.csv"))

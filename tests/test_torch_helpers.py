@@ -10,14 +10,9 @@ masking helpers. ``fundamental_eight_point`` on 60 correspondences with
 either): LAPACK's and XLA's float32 SVDs of the design matrix differ at
 ~1e-5, which the de-normalization's cancellation amplifies in the
 pixel-space F, so entries agree within 1e-3 of max|F| and Sampson
-distances within 1e-3 px; F has rank 2. ``profiling``: Roofline rows carry
-the H100's measured FP32 peak and no TPU figure, ``time_and_record``
-times a function, and ``trace``/``annotate`` write a Chrome trace on the
-CPU (the twin of tests/test_misc_utils.py:24-41).
+distances within 1e-3 px; F has rank 2. The port's tracer
+(``utils/profiling.py``) has its own tests in tests/test_torch_tracing.py.
 """
-
-import json
-import os
 
 import numpy as np
 import pytest
@@ -33,7 +28,7 @@ from sfm_mvs_tpu.ops import sift as jsift
 from sfm_mvs_tpu.utils import synthetic as jsyn
 from sfm_mvs_tpu.utils import viz as jviz
 from sfm_mvs_tpu_torch.ops import epipolar, masking, projection, pyramid, sift
-from sfm_mvs_tpu_torch.utils import profiling, synthetic, viz
+from sfm_mvs_tpu_torch.utils import synthetic, viz
 
 
 def test_fundamental_eight_point_matches_jax():
@@ -184,29 +179,3 @@ def test_loaders_bitwise(tmp_path):
         except (OSError, RuntimeError):
             continue  # the JAX package's native decoder is not built here
         np.testing.assert_array_equal(tex, ref)
-
-
-def test_roofline_record():
-    r = profiling.Roofline("h100")
-    row = r.record("matmul", seconds=0.001, flops=1e9, bytes_=1e6)
-    assert abs(row["achieved_tflops"] - 1.0) < 1e-9
-    assert abs(row["f32_fraction"] - 1.0 / 65.4) < 1e-12
-    assert abs(row["achieved_gbps"] - 1.0) < 1e-9 and "hbm_fraction" not in row
-    assert profiling.PEAKS.keys() == {"h100"} and profiling.PEAKS["h100"]["power_limit_w"] == 700.0
-    row2 = r.time_and_record("add", lambda x: x + 1, torch.ones(128), flops=128, iters=2)
-    assert row2["ms"] > 0 and len(r.rows) == 2
-    with pytest.raises(KeyError):
-        profiling.Roofline("v5e")
-
-
-def test_trace_annotation_contexts(tmp_path):
-    with profiling.annotate("region"):
-        torch.ones(8).sum()
-    with profiling.trace(str(tmp_path / "tr")):
-        with profiling.annotate("inside"):
-            torch.ones(8).sum()
-    path = tmp_path / "tr" / "trace.json"
-    assert path.exists()
-    names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
-    assert "inside" in names
-    assert os.listdir(tmp_path / "tr") == ["trace.json"]

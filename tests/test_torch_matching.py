@@ -9,6 +9,8 @@ well-separated random descriptors ``valid`` and ``idx1`` must be identical
 rounding only).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,20 @@ from _torch_parity import J, N, T
 from sfm_mvs_tpu.ops import matching as jm
 from sfm_mvs_tpu.ops.matching_pallas import knn_match_pallas
 from sfm_mvs_tpu_torch.ops import matching, matching_cuda
+from sfm_mvs_tpu_torch.utils import profiling
 from sfm_mvs_tpu_torch.utils.config import FrontendConfig
+
+
+@contextlib.contextmanager
+def _tracer_on():
+    """The port's tracer on and empty inside, off and empty after."""
+    profiling.reset()
+    profiling.enable()
+    try:
+        yield
+    finally:
+        profiling.disable()
+        profiling.reset()
 
 
 def _descs(rng, n, d=128):
@@ -87,14 +102,16 @@ def test_gather_match_points(rng):
 
 def test_cuda_module_on_cpu_tensors(rng):
     """matching_cuda imports with no nvcc and no GPU; on CPU tensors the
-    wrapper returns the plain result and launches nothing."""
+    wrapper returns the plain result and launches nothing (the tracer, on,
+    records no ``k1`` span and no ``k1.*`` counter)."""
     d0, d1, v0, v1, ratio = _case(rng, "300x300")
-    matching_cuda.reset_launches()
-    ours = matching_cuda.knn_match_cuda(T(d0), T(d1), T(v0), T(v1), ratio=ratio)
+    with _tracer_on():
+        ours = matching_cuda.knn_match_cuda(T(d0), T(d1), T(v0), T(v1), ratio=ratio)
+        traced = profiling.export()
     plain = matching.knn_match(T(d0), T(d1), T(v0), T(v1), ratio=ratio)
     for a, b in zip(ours, plain):
         assert torch.equal(a, b)
-    assert matching_cuda.launches == 0
+    assert traced["spans"] == [] and traced["counters"] == {}
     with pytest.raises(ValueError, match="CUDA tensor"):
         matching_cuda.knn2_raw(T(d0), T(d1), T(v1))
 
@@ -187,13 +204,13 @@ def test_cuda_batch_wrapper_on_cpu_tensors(rng):
     """knn_match_cuda_batch returns the plain batched result on CPU tensors
     and counts nothing; the raw launch refuses CPU tensors."""
     d0, d1, v0, v1 = _batch(rng, B=3)
-    matching_cuda.reset_launches()
-    ours = matching_cuda.knn_match_cuda_batch(T(d0), T(d1), T(v0), T(v1), ratio=0.75)
+    with _tracer_on():
+        ours = matching_cuda.knn_match_cuda_batch(T(d0), T(d1), T(v0), T(v1), ratio=0.75)
+        traced = profiling.export()
     plain = matching.knn_match(T(d0), T(d1), T(v0), T(v1), ratio=0.75)
     for a, b in zip(ours, plain):
         assert torch.equal(a, b)
-    assert (matching_cuda.launches, matching_cuda.batch_launches, matching_cuda.batch_pairs) == (
-        0, 0, 0)
+    assert traced["spans"] == [] and traced["counters"] == {}
     with pytest.raises(ValueError, match="CUDA tensor"):
         matching_cuda.knn2_raw(T(d0), T(d1), T(v1))
 
