@@ -6,8 +6,9 @@
 Phases, each printing one line (any failure exits non-zero):
 
 1. device: requires CUDA; prints the card's name and power limit.
-2. build: compiles the port's CUDA sources (csrc/*.cu) with nvcc; the tile
-   kernel's registers and spill bytes from the ptxas report (spills fail).
+2. build: compiles the port's CUDA sources (csrc/*.cu) with nvcc; the
+   registers and spill bytes of K1's tile kernel and of the MVS kernels
+   from the ptxas reports (spills fail).
 3. K1: the 2-NN matcher kernel against its plain PyTorch version on the
    card, on nine cases (five of PR 1; exact ties across tiles and across
    splits, where d1 == d2 bitwise at the lower column; train sets of 1 and
@@ -20,6 +21,33 @@ Phases, each printing one line (any failure exits non-zero):
    8 single launches and within the same margins of the plain batched
    version, timed per pair beside a single launch, ``torch.bmm`` of the
    batched cross term and the bound for 8 pairs.
+3b. MVS pass 1's kernels (``csrc/mvs_sweep.cu``) on two chunks of 4
+   references with 4 neighbours each and ground-truth poses: portbench's
+   fountain11 scene at 1536x1024 (references 4-7; every level whole 32-px
+   tiles) and the staircase scene at 968x648 (references 10-13; every
+   level ends in ragged tiles, as phase 9 and the CLI's --densify run).
+   ``_plane_sweep_batch`` on the card must launch them 6 times (3
+   zero-mean, 3 sweep levels; the tracer's ``mvs.sweep_kernel``). At each
+   level, pinhole and again with ``dist``, the kernel's (invd, best_cost,
+   mean_cost, den_best) and its cost of every hypothesis are held to the
+   plain ``_sweep_select_plain`` in float64 on the same float32 inputs,
+   beside the plain code in float32 (the path they replace): relative
+   cost errors (below a cost of 1e-3, absolute to 1e-8) with a median
+   within 1e-5 and no larger a share above 1e-5 than the float32 plain
+   code's, over the whole image and again over the edge band (the ragged
+   last tile column and row, and the border within the filter's radius;
+   for mean_cost, which sums all D costs, the share is compared outside
+   the pixels where both paths' cost of some hypothesis is 1e-4 off, a
+   tap both round to another pixel, and its mean error over the whole
+   image must be no larger than the plain code's besides);
+   the chosen hypothesis, where float64's best two costs are
+   clear (more than that apart), and invd there (half a hypothesis step),
+   differing no more often than the float32 plain code's; the kernel's
+   selection equal bit for bit to its own costs' (best, den, mean); the
+   zero-mean images within 1e-6 of float64 and no further than the plain
+   code's. Then each launch's time beside its taps at one load a lane a
+   cycle, and pass 1 of the fountain chunk through the kernels and through
+   the plain code (launch-amortized ms, launches, device ops).
 4. main path: ``IncrementalSfM(cfg, device="cuda").run(images)`` on the
    57-frame 968x648 staircase scene at bench.py's frontend settings, BA off;
    checks registration, ATE and reprojection error against ground truth,
@@ -53,7 +81,8 @@ Phases, each printing one line (any failure exits non-zero):
    map before its sweep, ``refine.finalize_map(max_iterations=20)``, then
    ``mvs.densify_map`` with the GT harness's settings; checks depth
    relative error (median < 0.01, RMS < 0.03), coverage of GT-valid pixels
-   > 0.65 and finite points, beside the v5e quality record.
+   > 0.65 and finite points, beside the v5e quality record, and that every
+   chunk went through the MVS kernels (``mvs.sweep_kernel`` 6 a chunk).
 10. loop closure (runs between phases 7 and 8, on the same PNGs): the CLI
     with ``--bootstrap seq --essential-solver 5pt --grad-sampling bilinear
     --ba --loop-close 4 --finalize``; checks 57 poses at ATE < 0.05, the
@@ -102,7 +131,8 @@ Phases, each printing one line (any failure exits non-zero):
     sharded lookup (exact) and nearest-projected query (d2 rel 1e-5) on
     phase 5's map, and ``densify_map(mesh=)`` at phase 9's settings (point
     count within max(5, n/100) of phase 9's, rounded-point overlap > 0.98,
-    the same cloud on both ranks, phase 9's depth gates). Prints wall and
+    the same cloud on both ranks, phase 9's depth gates, 6 MVS kernel
+    launches a chunk on each rank). Prints wall and
     per-LM-iteration times and each rank's time for one all_reduce of 384
     floats (a CG step's), which are of ranks sharing one card.
 16. the last line: {"ok": true, "device": {...}}.
@@ -112,9 +142,12 @@ worker process, started after the build, while phases 3-10 drive the card.
 
 ``--profile`` adds, after phase 15, bench.py's stage breakdown with
 torch.profiler over two warm frames and one LM iteration, torch.profiler
-over one ``mvs._plane_sweep_batch`` call of 4 reference frames, and a KLT
-frame's stage breakdown with torch.profiler over one warm ``klt_step``
-(tables in chiprun_out/profile.txt).
+over one ``mvs._plane_sweep_batch`` call of 4 reference frames (with its
+time and MVS kernel launches beside the plain code's), and a KLT frame's
+stage breakdown with torch.profiler over one warm ``klt_step`` (tables in
+chiprun_out/profile.txt).
+
+    python3 chip_smoke.py --mvs  # phases 1, 2 and 3b only (~2 min)
 
     python3 chip_smoke.py --microbench  # only the card's limits behind K1
 
@@ -128,7 +161,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import shutil
 import statistics
 import struct
@@ -153,8 +185,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def k1_count_start() -> None:
-    """Count K1's launches from here: the port's tracer on and empty."""
+def tracer_start() -> None:
+    """Count kernel launches from here: the port's tracer on and empty."""
     from sfm_mvs_tpu_torch.utils import profiling
 
     profiling.reset()
@@ -163,7 +195,7 @@ def k1_count_start() -> None:
 
 def k1_counts(records=()) -> tuple:
     """(single launches, batched launches, pairs of the batched launches)
-    since :func:`k1_count_start`, from the tracer's ``k1.*`` counters: what
+    since :func:`tracer_start`, from the tracer's ``k1.*`` counters: what
     it holds now plus what ``IncrementalSfM`` moved into its frame
     `records` (``sfm.stats`` or metrics.jsonl's records: each frame's
     record takes the frame's counters and resets the tracer). Turns the
@@ -180,6 +212,17 @@ def k1_counts(records=()) -> tuple:
                                                            "batch_pairs"))
 
 
+def mvs_kernel_count() -> int:
+    """MVS pass 1's kernel launches since :func:`tracer_start`, from the
+    tracer's ``mvs.sweep_kernel``. Turns the tracer off."""
+    from sfm_mvs_tpu_torch.utils import profiling
+
+    n = int(profiling.summary(profiling.export())["counters"].get("mvs.sweep_kernel", 0))
+    profiling.disable()
+    profiling.reset()
+    return n
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the smoke run needs a GPU")
@@ -194,9 +237,10 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Compile csrc/knn2.cu; returns (seconds, registers, spill bytes) of
-    the tile kernel from the ptxas report."""
-    from sfm_mvs_tpu_torch.ops import matching_cuda
+    """Compile csrc/knn2.cu and csrc/mvs_sweep.cu; returns (seconds,
+    registers, spill bytes) of K1's tile kernel and {kernel: (registers,
+    spill bytes)} of the MVS kernels, from the ptxas reports. Spills fail."""
+    from sfm_mvs_tpu_torch.ops import cuda_build, matching_cuda, mvs_cuda
 
     t0 = time.time()
     path = matching_cuda.build()
@@ -205,20 +249,25 @@ def phase_build():
               if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log(f"[build] csrc/knn2.cu -> {path.name} in {secs:.1f}s; " + " | ".join(report))
     registers = spills = None
-    in_tile = False
-    for ln in report:
-        if "Compiling entry" in ln:
-            in_tile = "knn2_tile_kernel" in ln
-        elif in_tile and "spill stores" in ln:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-            spills = int(m.group(1)) + int(m.group(2))
-        elif in_tile and "Used" in ln:
-            registers = int(re.search(r"Used (\d+) registers", ln).group(1))
+    for entry, (regs, spill) in cuda_build.ptxas_report(matching_cuda.build_log).items():
+        if "knn2_tile_kernel" in entry:
+            registers, spills = regs, spill
     if registers is None or spills is None:
         raise AssertionError("no ptxas report for knn2_tile_kernel")
     if spills:
         raise AssertionError(f"knn2_tile_kernel spills {spills} bytes")
-    return secs, registers, spills
+    t0 = time.time()
+    path = mvs_cuda.build()
+    mvs_regs = {name: regs for entry, regs in cuda_build.ptxas_report(mvs_cuda.build_log).items()
+                for name in ("sweep_kernel", "zero_mean_kernel") if name in entry}
+    log(f"[build] csrc/mvs_sweep.cu -> {path.name} in {time.time() - t0:.1f}s; "
+        f"(registers, spill bytes) {mvs_regs}")
+    if len(mvs_regs) != 2 or any(r is None or sp is None for r, sp in mvs_regs.values()):
+        raise AssertionError(f"no ptxas report for the MVS kernels:\n{mvs_cuda.build_log}")
+    if any(sp for _, sp in mvs_regs.values()):
+        raise AssertionError(f"an MVS kernel spills: {mvs_regs}")
+    secs += time.time() - t0
+    return secs, registers, spills, mvs_regs
 
 
 def _descs(rng, n, d=128):
@@ -595,7 +644,7 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
 
     stack8 = stage_u8(imgs)
     torch.cuda.reset_peak_memory_stats()
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     pstate, records = bench_frames(stack8, cfg)
     loop_s = time.perf_counter() - t0
@@ -672,7 +721,7 @@ def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
 
     cfg_d = dataclasses.replace(sweep_config(cfg), ba=BaConfig(enabled=True, max_iterations=8))
     sfm = IncrementalSfM(cfg_d, device=DEVICE)
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     run_state = sfm.run(imgs)
     torch.cuda.synchronize()
@@ -725,7 +774,7 @@ def phase_main(imgs, Rt_gt, cfg):
     from sfm_mvs_tpu_torch.ops import sift
 
     sfm = IncrementalSfM(cfg, device=DEVICE)
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     state = sfm.run(imgs)
     torch.cuda.synchronize()
@@ -901,7 +950,7 @@ def phase_cli(Rt_gt):
     args = cli_args(out, "--bootstrap", "auto", "--ba", "--ba-iterations", "8", "--finalize",
                     "--sweep", "--sweep-contrast", "0.0025", "--densify", "--no-gif")
     Sfm = incremental.IncrementalSfM
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     with StageClock([
         (native.ImageLoader, "get", "image load"), (Sfm, "run", "run"),
@@ -968,7 +1017,7 @@ def phase_resume():
     shutil.rmtree(out, ignore_errors=True)
     args = cli_args(out, "--bootstrap", "seq", "--checkpoint-every", "20", "--no-gif")
     n = len(os.listdir(FRAME_DIR))
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     rc_a = cli.main(args)
     run_a_s = time.perf_counter() - t0
@@ -977,7 +1026,7 @@ def phase_resume():
     with open(f"{out}/metrics.jsonl") as fh:  # run B rewrites it
         launches = k1_counts([json.loads(line) for line in fh])[0]
     latest = checkpoint.latest_checkpoint(f"{out}/checkpoints")
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     rc_b = cli.main(args + ["--resume"])
     run_b_s = time.perf_counter() - t0
@@ -1002,10 +1051,11 @@ def phase_resume():
 
 
 class Capture:
-    """Records the return values of a module function while active."""
+    """Records the arguments and return values of a module function while
+    active."""
 
     def __init__(self, owner, name):
-        self.owner, self.name, self.values = owner, name, []
+        self.owner, self.name, self.values, self.calls = owner, name, [], []
 
     def __enter__(self):
         fn = self.fn = getattr(self.owner, self.name)
@@ -1013,6 +1063,7 @@ class Capture:
         def wrapper(*args, **kwargs):
             out = fn(*args, **kwargs)
             self.values.append(out)
+            self.calls.append((args, kwargs))
             return out
 
         setattr(self.owner, self.name, wrapper)
@@ -1036,7 +1087,7 @@ def phase_loop_cli(Rt_gt):
                     "bilinear", "--ba", "--ba-iterations", "8", "--loop-close", "4",
                     "--finalize", "--no-gif")
     Sfm = incremental.IncrementalSfM
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     with StageClock([(native.ImageLoader, "get", "image load"), (Sfm, "run", "run"),
                      (Sfm, "finalize", "finalize"),
@@ -1097,7 +1148,7 @@ def phase_intrinsics(cfg, renders):
     # BA off, as in the test this mirrors: a per-frame pinhole BA absorbs
     # most of the distortion into the structure first (PERF.md, section 4).
     sfm = IncrementalSfM(cfg, device=DEVICE)
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     state = sfm.run(imgs)
     torch.cuda.synchronize()
@@ -1156,7 +1207,7 @@ def phase_global(cfg):
 
     imgs, Rt_gt, _ = render_plane_sequence(**PLANE)
     F = len(imgs)
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     g = GlobalSfM(cfg, device=DEVICE)
     state = g.run(imgs, run_ba=True)
@@ -1239,7 +1290,7 @@ def phase_klt(imgs, Rt_gt, cfg):
     from sfm_mvs_tpu_torch.models.klt import KltSfM
     from sfm_mvs_tpu_torch.utils import evaluate
 
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     k = KltSfM(cfg, redetect_every=5, device=DEVICE)
     state = k.run(imgs)
@@ -1324,7 +1375,7 @@ def phase_stitch(renders):
     cfg_stitch = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac,
                                                                      essential_iters=512))
     sfm = IncrementalSfM(cfg, device=DEVICE)
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     state = sfm.run(imgs)
     torch.cuda.synchronize()
@@ -1338,7 +1389,7 @@ def phase_stitch(renders):
         raise AssertionError(f"K1 launched {reg_launches} times in registration, expected {F - 1}")
 
     # The stitch, once after registration (camera i is frame i).
-    k1_count_start()
+    tracer_start()
     t0 = time.perf_counter()
     cnt = exhaustive.covisibility_matrix(state, image_size=(W, H)).cpu().numpy()
     pairs = exhaustive.retrieve_stitch_pairs(
@@ -1442,6 +1493,8 @@ def phase_stitch(renders):
 MVS_RECORD = dict(rel_rms=0.01421, median=0.00299, under_1pct=0.8919, coverage_gt=0.8008,
                   points=5353610)  # artifacts/MVS_r05.json (v5e; quality only)
 # benchmarks/mvs_full.py's densify_map settings (the GT harness).
+# zero-mean + sweep launches a pass-1 chunk: one each a pyramid level.
+MVS_LAUNCHES_A_CHUNK = 6
 MVS_SETTINGS = dict(num_depths=64, stride=2, geo_rel_tol=0.02, edge_trim_radius=6,
                     geo_min_consistent=2, free_space_rel=0.05, min_conf=0.5)
 
@@ -1464,7 +1517,9 @@ def depth_gates(depth, gt_depths, s_align):
 
 
 def phase_mvs(stack8, state, Rt_gt, gt_depths):
-    """benchmarks/mvs_full.py's recipe on phase 5's map before its sweep."""
+    """benchmarks/mvs_full.py's recipe on phase 5's map before its sweep;
+    every chunk's pass 1 must go through the MVS kernels. Returns (map,
+    points, scale, MVS kernel launches)."""
     from sfm_mvs_tpu_torch.models import mvs, refine
     from sfm_mvs_tpu_torch.utils import evaluate
 
@@ -1476,10 +1531,13 @@ def phase_mvs(stack8, state, Rt_gt, gt_depths):
     grays = [gray_of(stack8, i) for i in range(n)]
     bgrs = [bgr_of(stack8, i) for i in range(n)]
     torch.cuda.reset_peak_memory_stats()
+    tracer_start()
     with StageClock([(mvs, "_depth_ranges", "pass 1"), (mvs, "_plane_sweep_batch", "pass 1"),
                      (mvs, "_fuse_batch", "pass 2")]) as clock:
         pts, _, dms = mvs.densify_map(grays, state, **MVS_SETTINGS, images_bgr=bgrs,
                                       return_depth_maps=True)
+    launches = mvs_kernel_count()
+    chunks = -(-int(state.num_cams) // 4)
     depth = [(r, dm.depth.cpu().numpy(), dm.valid.cpu().numpy()) for r, dm in dms.items()]
     rms, med, under, cov = depth_gates(depth, gt_depths, s_align)
     rec = MVS_RECORD
@@ -1489,14 +1547,344 @@ def phase_mvs(stack8, state, Rt_gt, gt_depths):
         f"dense points {len(pts)} (v5e record: {rec['points']})  scale {s_align:.5f}")
     log(f"[mvs] pass 1 {clock.total('pass 1'):.2f} s, pass 2 {clock.total('pass 2'):.2f} s "
         f"(synchronized host clock, {n} reference frames, batches of 4); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; MVS kernel launches {launches} "
+        f"({chunks} chunks)")
+    if launches != MVS_LAUNCHES_A_CHUNK * chunks:
+        raise AssertionError(f"{launches} MVS kernel launches in densify_map, expected "
+                             f"{MVS_LAUNCHES_A_CHUNK} x {chunks} chunks")
     if not med < 0.01 or not rms < 0.03:
         raise AssertionError(f"depth error median {med} / rel-RMS {rms} above 0.01 / 0.03")
     if not cov > 0.65:
         raise AssertionError(f"coverage of GT-valid pixels {cov} <= 0.65")
     if not np.isfinite(pts).all():
         raise AssertionError("non-finite dense points")
-    return state, pts, s_align
+    return state, pts, s_align, launches
+
+
+# MVS pass 1's kernels (ops/mvs_cuda.py) on two chunks of 4 references,
+# each with its 4 sweep neighbours, ground-truth poses and depth ranges from
+# the rendered depths (densify_map's quantiles and widening): portbench's
+# fountain11 scene at 1536x1024 (references 4-7), where every level is a
+# whole number of 32-px tiles, and the staircase scene at 968x648
+# (references 10-13, profile_sweep's), where every level ends in ragged
+# tiles (the clamped halo and the out-of-image guards), as phase 9, the
+# CLI's --densify and the distributed MVS run. The yardstick is the plain
+# code run in float64 on the same float32 inputs; the plain code in
+# float32 (the path the kernels replace) is held to it too, and the kernels
+# may disagree with float64 no more than it does.
+MVS_CHUNK = [4, 5, 6, 7]
+STAIR_CHUNK = [10, 11, 12, 13]
+MVS_DIST = (0.03, -0.01)
+SWEEP_REL = 1e-5  # relative cost tolerance, and the cost gap that makes a choice clear
+COST_FLOOR = 1e-3  # costs below it are compared absolutely, to SWEEP_REL * COST_FLOOR
+FLIP_REL = 1e-4  # a cost this far off float64 has a tap on another pixel (rounding: < 2e-7)
+
+
+def _chunk_of(images, Rt, K, depths, refs):
+    """(refs, nbrs, poses, nbr poses, K, lo, hi) of the references `refs`
+    of a rendered scene (tensors on the card), neighbours r-2..r+2."""
+    idx = torch.as_tensor(refs, device=DEVICE)
+    nidx = torch.as_tensor([[r - 2, r - 1, r + 1, r + 2] for r in refs], device=DEVICE)
+    poses = torch.as_tensor(Rt, dtype=torch.float32, device=DEVICE)
+    q = torch.tensor([0.02, 0.98], device=DEVICE)
+    lohi = torch.stack([torch.quantile(z[z > 0.1], q) for z in depths[idx].flatten(1)])
+    return (images[idx].contiguous(), images[nidx].contiguous(), poses[idx], poses[nidx],
+            torch.as_tensor(K, dtype=torch.float32, device=DEVICE), lohi[:, 0] * 0.7,
+            lohi[:, 1] * 1.4)
+
+
+def _mvs_chunk():
+    """The fountain chunk (1536x1024)."""
+    from portbench import scene as pscene
+
+    with open("portbench/configs/fountain11.json") as fh:
+        s = json.load(fh)["scene"]
+    sc = pscene.render(s["num_cameras"], s["image_size"], s["fx"], s["fy"], s["cx"], s["cy"],
+                       s["radius"], s["arc_degrees"], s["num_strips"], s["depth_spread"],
+                       s["geometry_seed"], texture_seed=1, device=DEVICE)
+    return _chunk_of(sc.images, sc.Rt, sc.K, sc.depths, MVS_CHUNK)
+
+
+def _stair_chunk(imgs, Rt_gt, K, gt_depths):
+    """The staircase chunk (968x648), its frames as the main path stages
+    them (uint8 on the card, / 255)."""
+    return _chunk_of(stage_u8(imgs).float() / 255.0, Rt_gt, K,
+                     torch.as_tensor(np.asarray(gt_depths), device=DEVICE), STAIR_CHUNK)
+
+
+def _f64(x):
+    return x.double() if torch.is_tensor(x) else x
+
+
+def _volume(fn, args, kw):
+    """(costs, dens), each (B, D + E, H, W): every hypothesis of a level,
+    one `fn` call each (`fn` is ``_sweep_select_plain`` or the kernel's
+    wrapper). A lone hypothesis's best cost is its cost and its den_best
+    its den; an escape map is a center with offset 0."""
+    ref_zm, nbrs_zm, Kl, R, t, center, offs, radius = args
+    one = dict(dist=kw.get("dist"), sample_mode=kw.get("sample_mode", "bilinear"))
+    outs = [fn(ref_zm, nbrs_zm, Kl, R, t, center, offs[:, d:d + 1].contiguous(), radius, **one)
+            for d in range(offs.shape[1])]
+    zero = torch.zeros_like(offs[:, :1])
+    outs += [fn(ref_zm, nbrs_zm, Kl, R, t, e, zero, radius, **one) for e in kw.get("extra", ())]
+    return torch.stack([o[1] for o in outs], 1), torch.stack([o[3] for o in outs], 1)
+
+
+def _sweep_readings(args, kw, kernel_out) -> dict:
+    """The kernel's and the float32 plain code's disagreement with the
+    float64 plain code on one level's inputs, from their outputs and from
+    each one's cost of every hypothesis."""
+    from sfm_mvs_tpu_torch.models import mvs
+    from sfm_mvs_tpu_torch.ops import mvs_cuda
+
+    a64 = [_f64(x) for x in args]
+    kw64 = dict(kw, dist=_f64(kw.get("dist")), extra=tuple(_f64(e) for e in kw.get("extra", ())))
+    ref = mvs._sweep_select_plain(*a64, **kw64)
+    c64, _ = _volume(mvs._sweep_select_plain, a64, kw64)
+    offs = args[6]
+    D = offs.shape[1]
+    srt = c64.sort(1).values
+    scale = srt[:, 0].abs().clamp_min(COST_FLOOR)
+    clear = (srt[:, 1] - srt[:, 0] > SWEEP_REL * scale if c64.shape[1] > 1
+             else torch.ones_like(scale, dtype=torch.bool))
+    best = c64.argmin(1)
+    step = ((offs[:, 1] - offs[:, 0]) if D > 1 else torch.ones_like(offs[:, 0])).double()
+    # The edge band: the ragged last tile column and row (the kernel's
+    # out-of-image guards) and the pixels within the filter's radius of the
+    # image's border (its clamped halo).
+    H, W, rad = args[0].shape[-2], args[0].shape[-1], args[7]
+    ys = torch.arange(H, device=DEVICE)[:, None]
+    xs = torch.arange(W, device=DEVICE)[None, :]
+    band = ((xs >= W // mvs_cuda.TILE * mvs_cuda.TILE) | (ys >= H // mvs_cuda.TILE * mvs_cuda.TILE)
+            | (xs < rad) | (ys < rad) | (xs >= W - rad) | (ys >= H - rad))
+    out = {"clear": float(clear.double().mean()),
+           "cost_median": float(srt[:, 0].median()),
+           "flat": float((srt[:, 0] < COST_FLOOR).double().mean()),
+           "band": float(band.double().mean())}
+    paths = {"kernel": (kernel_out, mvs_cuda.sweep_select),
+             "plain32": (mvs._sweep_select_plain(*args, **kw), mvs._sweep_select_plain)}
+    vols = {name: _volume(fn, args, kw) for name, (_, fn) in paths.items()}
+    rels = {name: (c.double() - c64).abs() / c64.abs().clamp_min(COST_FLOOR)
+            for name, (c, _) in vols.items()}
+    # Pixels where both paths' cost of some hypothesis is more than
+    # FLIP_REL off float64: a discrete tap (nearest, or the inside test)
+    # that float32 and float64 round to different pixels. Both paths warp
+    # with the same float32 roundings, so they share these errors; the mean
+    # of the D costs carries any one of them.
+    shared = ((rels["kernel"] > FLIP_REL) & (rels["plain32"] > FLIP_REL)).any(1)
+    out["shared_flips"] = float(shared.double().mean())
+    for name, (o, fn) in paths.items():
+        c, d = vols[name]
+        r = {}
+        rel4 = rels[name]
+        rel = rel4.flatten()
+        r["edge_median"] = float(rel4[..., band].median())
+        r["edge_over"] = float((rel4[..., band] > SWEEP_REL).double().mean())
+        r["vol_median"] = float(rel.median())
+        r["vol_p99"] = float(torch.quantile(rel[::rel.numel() // (1 << 23) + 1], 0.99))
+        r["vol_over"] = float((rel > SWEEP_REL).double().mean())
+        for key, i in (("best", 1), ("mean", 2)):
+            e = ((o[i].double() - ref[i]).abs() / ref[i].abs().clamp_min(COST_FLOOR)).flatten()
+            r[f"{key}_median"] = float(e.median())
+            r[f"{key}_over"] = float((e > SWEEP_REL).double().mean())
+            r[f"{key}_abs"] = float(e.mean())
+            r[f"{key}_over_unshared"] = float(((e > SWEEP_REL) & ~shared.flatten()).double().mean())
+        chose = c.argmin(1)
+        r["choice_miss"] = float((chose != best)[clear].double().mean())
+        r["edge_miss"] = int((chose != best)[clear & band].sum())
+        # The selection against the path's own costs, exactly: the best cost,
+        # its den, and the mean as the kernel sums it (in order, compensated
+        # (Kahan), then / D).
+        r["sel_best"] = float((o[1] != c.min(1).values).double().mean())
+        r["sel_den"] = float((o[3] != d.gather(1, chose[:, None])[:, 0]).double().mean())
+        acc, comp = torch.zeros_like(c[:, 0]), torch.zeros_like(c[:, 0])
+        for j in range(D):
+            y = c[:, j] - comp
+            t = acc + y
+            comp = (t - acc) - y
+            acc = t
+        # (float64 quotient, rounded once: IEEE float32 division; CUDA's
+        # tensor / scalar multiplies by the reciprocal instead.)
+        r["sel_mean"] = float((o[2] != (acc.double() / D).float()).double().mean())
+        # invd where the choice is clear (elsewhere the costs tie, or differ
+        # below float32's resolution, and any hypothesis is as good).
+        dv = ((o[0].double() - ref[0]).abs() / step[:, None, None])[clear]
+        r["invd_far"] = float((dv > 0.5).double().mean())
+        same = (chose == best)[clear]
+        r["invd_same"] = float(dv[same].max()) if same.any() else 0.0
+        out[name] = r
+    return out
+
+
+def _sweep_taps(levels) -> int:
+    """Neighbour taps a sweep call needs: per level B x M x H x W x
+    hypotheses x (1 nearest, 4 bilinear)."""
+    n = 0
+    for args, kw in levels:
+        ref_zm, nbrs_zm, offs = args[0], args[1], args[6]
+        taps = 1 if kw.get("sample_mode") == "nearest" else 4
+        n += nbrs_zm.shape[:2].numel() * ref_zm.shape[-2:].numel() * taps * (
+            offs.shape[1] + len(kw.get("extra", ())))
+    return n
+
+
+def _plain_pass1():
+    """Context: mvs's pass 1 routed to the plain code (for timing it)."""
+    from unittest import mock
+
+    from sfm_mvs_tpu_torch.models import mvs
+
+    return mock.patch.multiple(mvs, _sweep_select=mvs._sweep_select_plain,
+                               _zero_mean=mvs._zero_mean_plain)
+
+
+def _pass1_paths(sweep) -> dict:
+    """One pass-1 call `sweep()` through the kernels and through the plain
+    code: launch-amortized ms (CUDA events), the kernels' launches a call
+    (the tracer's ``mvs.sweep_kernel``), and each path's device ops and
+    busy ms under torch.profiler."""
+    out = {}
+    tracer_start()
+    sweep()
+    out["kernel_launches"] = mvs_kernel_count()
+    out["kernel_ms"] = statistics.median(_window_ms(sweep, calls=20, windows=5))
+    _, out["kernel_busy_ms"], out["kernel_ops"], _ = _profile_window(sweep)
+    with _plain_pass1():
+        out["plain_ms"] = statistics.median(_window_ms(sweep, calls=2, windows=3))
+        _, out["plain_busy_ms"], out["plain_ops"], _ = _profile_window(sweep)
+    return out
+
+
+def _check_chunk(name, chunk, dist, fails) -> tuple:
+    """The card check of one chunk, pinhole and with `dist`: every level's
+    readings (logged; failures appended to `fails`). Returns the sweep's
+    {(tag, level): (args, kw)} and the zero-mean calls of the pinhole run."""
+    from sfm_mvs_tpu_torch.models import mvs
+
+    refs, nbrs, poses, nposes, K, lo, hi = chunk
+    levels, zm_calls = {}, None
+    for d in (None, dist):
+        tag = f"{name} {'dist' if d is not None else 'pinhole'}"
+        tracer_start()
+        with Capture(mvs, "_sweep_select") as sel, Capture(mvs, "_zero_mean") as zm:
+            mvs._plane_sweep_batch(refs, nbrs, poses, nposes, K, lo, hi, dist=d)
+        torch.cuda.synchronize()
+        n = mvs_kernel_count()
+        if n != MVS_LAUNCHES_A_CHUNK:
+            fails.append(f"{tag}: {n} kernel launches in one _plane_sweep_batch, expected "
+                         f"{MVS_LAUNCHES_A_CHUNK}")
+        for lev, ((args, kw), out) in zip((2, 1, 0), zip(sel.calls, sel.values)):
+            levels[(tag, lev)] = (args, kw)
+            rd = _sweep_readings(args, kw, out)
+            k, p = rd["kernel"], rd["plain32"]
+            H, W = args[0].shape[-2:]
+            log(f"[mvs-kernel] {tag} level {lev} ({W}x{H}, {args[6].shape[1]}+"
+                f"{len(kw.get('extra', ()))} hyps, {kw.get('sample_mode', 'bilinear')}): "
+                f"float64 best cost median {rd['cost_median']:.4g}, below {COST_FLOOR:g} "
+                f"{rd['flat']:.4f}, clear choices {rd['clear']:.4f}; kernel / plain float32 "
+                f"against float64:")
+            log(f"[mvs-kernel]   every hypothesis's cost: rel err median {k['vol_median']:.3g} / "
+                f"{p['vol_median']:.3g}, p99 {k['vol_p99']:.3g} / {p['vol_p99']:.3g}, share > "
+                f"{SWEEP_REL:g} {k['vol_over']:.4g} / {p['vol_over']:.4g}")
+            log(f"[mvs-kernel]   edge band ({rd['band']:.4f} of pixels: ragged tiles, border): "
+                f"rel err median {k['edge_median']:.3g} / {p['edge_median']:.3g}, share > "
+                f"{SWEEP_REL:g} {k['edge_over']:.4g} / {p['edge_over']:.4g}, clear choices "
+                f"differing {k['edge_miss']} / {p['edge_miss']} pixels")
+            for key in ("best", "mean"):
+                log(f"[mvs-kernel]   {key}_cost rel err median {k[key + '_median']:.3g} / "
+                    f"{p[key + '_median']:.3g}, mean {k[key + '_abs']:.4g} / {p[key + '_abs']:.4g}, "
+                    f"share > {SWEEP_REL:g} {k[key + '_over']:.4g} / {p[key + '_over']:.4g}, "
+                    f"outside the shared tap flips ({rd['shared_flips']:.4f} of pixels) "
+                    f"{k[key + '_over_unshared']:.4g} / {p[key + '_over_unshared']:.4g}")
+            log(f"[mvs-kernel]   where clear: chosen hypothesis differs {k['choice_miss']:.4g} / "
+                f"{p['choice_miss']:.4g}; invd off by > half a step {k['invd_far']:.4g} / "
+                f"{p['invd_far']:.4g}, at most {k['invd_same']:.3g} / {p['invd_same']:.3g} steps "
+                f"where the choice is the same")
+            log(f"[mvs-kernel]   selection against its own costs: best cost {k['sel_best']:.3g} / "
+                f"{p['sel_best']:.3g}, den {k['sel_den']:.3g} / {p['sel_den']:.3g}, mean "
+                f"{k['sel_mean']:.3g} / {p['sel_mean']:.3g} of pixels differing")
+            for key in ("vol", "edge", "best", "mean"):
+                if not k[key + "_median"] <= SWEEP_REL:
+                    fails.append(f"{tag} level {lev}: {key} cost median rel err "
+                                 f"{k[key + '_median']:.3g} > {SWEEP_REL:g}")
+                # The mean's share over SWEEP_REL is dominated by the shared tap
+                # flips, where both paths carry the same error and rounding
+                # noise decides at the threshold: there it is compared outside
+                # them, and its mean error over the whole image besides.
+                over = key + ("_over_unshared" if key == "mean" else "_over")
+                if not k[over] <= p[over]:
+                    fails.append(f"{tag} level {lev}: {key} cost share over {SWEEP_REL:g} "
+                                 f"({over}) {k[over]:.4g} > float32 plain {p[over]:.4g}")
+            if not k["mean_abs"] <= p["mean_abs"]:
+                fails.append(f"{tag} level {lev}: mean cost mean rel err {k['mean_abs']:.4g} > "
+                             f"float32 plain {p['mean_abs']:.4g}")
+            for key in ("choice_miss", "invd_far"):
+                if not k[key] <= p[key]:
+                    fails.append(f"{tag} level {lev}: {key} {k[key]:.4g} > float32 plain "
+                                 f"{p[key]:.4g}")
+            if k["sel_best"] or k["sel_den"] or k["sel_mean"]:
+                fails.append(f"{tag} level {lev}: the kernel's selection disagrees with its own "
+                             f"costs ({k['sel_best']}, {k['sel_den']}, {k['sel_mean']})")
+        for lev, ((args, _), out) in zip((0, 1, 2), zip(zm.calls, zm.values)):
+            ref = mvs._zero_mean_plain(*[_f64(a) for a in args])
+            plain = mvs._zero_mean_plain(*args)
+            ek = max(float((o.double() - r).abs().max()) for o, r in zip(out, ref))
+            ep = max(float((o.double() - r).abs().max()) for o, r in zip(plain, ref))
+            log(f"[mvs-kernel] {tag} zero-mean level {lev} {tuple(args[0].shape[-2:])}: max abs "
+                f"err vs float64 kernel {ek:.3g}, plain float32 {ep:.3g}")
+            if not (ek <= 1e-6 and ek <= ep):
+                fails.append(f"{tag} zero-mean level {lev}: max abs err {ek:.3g} (plain {ep:.3g})")
+        if zm_calls is None:
+            zm_calls = zm.calls
+    return levels, zm_calls
+
+
+def phase_mvs_kernel(sweep_regs, stair) -> dict:
+    """MVS pass 1's kernels on the card against the float64 plain code, at
+    each level of the fountain chunk and of the staircase chunk `stair`
+    (``_stair_chunk``), each pinhole and once more with `dist`; then each
+    kernel's time per launch and the whole pass 1 of the fountain chunk
+    through the kernels and through the plain code."""
+    from sfm_mvs_tpu_torch.models import mvs
+    from sfm_mvs_tpu_torch.ops import mvs_cuda
+
+    refs, nbrs, poses, nposes, K, lo, hi = fountain = _mvs_chunk()
+    dist = torch.tensor(MVS_DIST, device=DEVICE)
+    fails = []
+    levels, zm_calls = _check_chunk("fountain", fountain, dist, fails)
+    _check_chunk("staircase", stair, dist, fails)
+
+    # Times: each launch alone (CUDA events, launch-amortized), then pass 1
+    # of the chunk through the kernels and through the plain code.
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lane_rate = sms * 32 * clock_hz  # one 4-byte load per lane per SM cycle
+    per_level = {}
+    for lev in (2, 1, 0):
+        args, kw = levels[("fountain pinhole", lev)]
+        ms = statistics.median(_window_ms(lambda: mvs_cuda.sweep_select(*args, **kw), calls=20))
+        per_level[lev] = ms
+        bound = _sweep_taps([(args, kw)]) / lane_rate * 1e3
+        log(f"[mvs-kernel] sweep level {lev}: {ms:.4f} ms a launch; its taps at one load a "
+            f"lane a cycle {bound:.4f} ms (share {bound / ms:.3f})")
+    zm_ms = sum(statistics.median(_window_ms(lambda: mvs_cuda.zero_mean(*a), calls=20))
+                for a, _ in zm_calls)
+    taps = _sweep_taps([levels[("fountain pinhole", lev)] for lev in (2, 1, 0)])
+    bound = taps / lane_rate * 1e3
+    paths = _pass1_paths(lambda: mvs._plane_sweep_batch(refs, nbrs, poses, nposes, K, lo, hi))
+    log(f"[mvs-kernel] chunk of 4 refs: sweep launches {sum(per_level.values()):.4f} ms, "
+        f"zero-mean launches {zm_ms:.4f} ms; bound (taps {taps / 1e6:.1f} M at one load a lane a "
+        f"cycle, {sms} SMs at {clock_hz / 1e6:.0f} MHz) {bound:.4f} ms")
+    log(f"[mvs-kernel] _plane_sweep_batch through the kernels {paths['kernel_ms']:.3f} ms "
+        f"({paths['kernel_launches']} kernel launches, {paths['kernel_ops']} device ops, busy "
+        f"{paths['kernel_busy_ms']:.3f} ms); plain code {paths['plain_ms']:.3f} ms "
+        f"({paths['plain_ops']} device ops, busy {paths['plain_busy_ms']:.3f} ms)")
+    log(f"[mvs-kernel] registers, spill bytes: {sweep_regs}")
+    if fails:
+        raise AssertionError("MVS kernel check failed:\n  " + "\n  ".join(fails))
+    return {"sweep_ms": per_level, "zero_mean_ms": zm_ms, "bound_ms": bound, **paths}
 
 
 def profile_sweep(stack8, state):
@@ -1517,9 +1905,12 @@ def profile_sweep(stack8, state):
 
     sweep()
     wall, busy, n_ops, prof = _profile_window(sweep)
+    paths = _pass1_paths(sweep)
     summary = (f"[profile] one _plane_sweep_batch of 4 refs at {tuple(imgs.shape[1:])}, "
                f"4 neighbors, 64 depths: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
-               f"idle share {1 - busy / wall:.3f}, {n_ops} device ops")
+               f"idle share {1 - busy / wall:.3f}, {n_ops} device ops; launch-amortized "
+               f"{paths['kernel_ms']:.3f} ms with {paths['kernel_launches']} MVS kernel launches, "
+               f"the plain code {paths['plain_ms']:.3f} ms ({paths['plain_ops']} device ops)")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
                                       max_name_column_width=70)
     with open("chiprun_out/profile.txt", "a") as fh:
@@ -1725,7 +2116,7 @@ def _rank_job(rank, world, backend, port):
     frames = stack8.float() / 255.0
     cfg = main_config().frontend
     n = frames.shape[0]
-    k1_count_start()
+    tracer_start()
     t = time.perf_counter()
     parts = []
     for s in range(0, n, DETECT_CHUNK):
@@ -1782,11 +2173,13 @@ def _rank_job(rank, world, backend, port):
     k = int(mvs_map.cam_valid.sum())
     grays = [gray_of(stack8, i) for i in range(k)]
     bgrs = [bgr_of(stack8, i) for i in range(k)]
+    tracer_start()
     t = time.perf_counter()
     pts, _, dms = mvs.densify_map(grays, mvs_map, **MVS_SETTINGS, images_bgr=bgrs,
                                   return_depth_maps=True, mesh=m)
     torch.cuda.synchronize()
     out["mvs_s"] = time.perf_counter() - t
+    out["mvs_launches"] = (mvs_kernel_count(), -(-int(mvs_map.num_cams) // 4))
     out["mvs_points"] = len(pts)
     out["mvs_fingerprint"] = consistency.state_fingerprint(pts)
     if rank == 0:
@@ -1846,7 +2239,7 @@ def _ba_gates(name, rec, ref_state, ref_stats):
 def phase_distributed(bench_map, mvs_state, s_align, mvs_pts, stitch_map, stack8, gt_depths):
     """Phase 15: the port's parallel/ paths at full width on the card, 2
     gloo ranks sharing cuda:0 and 1 NCCL rank, against single-process runs.
-    Returns the ranks' batched K1 launches."""
+    Returns the ranks' batched K1 launches and MVS kernel launches."""
     from sfm_mvs_tpu_torch.models import ba
     from sfm_mvs_tpu_torch.ops import sift
     from sfm_mvs_tpu_torch.utils import checkpoint
@@ -1934,6 +2327,13 @@ def phase_distributed(bench_map, mvs_state, s_align, mvs_pts, stitch_map, stack8
             f"{med:.5f} under 1% {under:.4f} coverage {cov:.4f}; {gloo[0]['mvs_s']:.1f} / "
             f"{gloo[1]['mvs_s']:.1f} s")
         log("[dist] times are of 2 ranks sharing one card over gloo: not a scaling figure")
+        for r in gloo:
+            n_mvs, chunks = r["mvs_launches"]
+            log(f"[dist] MVS, rank {r['rank']}: {n_mvs} MVS kernel launches over {chunks} chunks")
+            if n_mvs != MVS_LAUNCHES_A_CHUNK * chunks:
+                raise AssertionError(f"rank {r['rank']}: {n_mvs} MVS kernel launches in "
+                                     f"densify_map(mesh=), expected {MVS_LAUNCHES_A_CHUNK} x "
+                                     f"{chunks} chunks")
         if abs(len(pts) - n1) > max(5, n1 // 100) or not overlap > 0.98 or not same:
             raise AssertionError("sharded MVS outside tests/test_mvs.py's bounds")
         if not med < 0.01 or not rms < 0.03 or not cov > 0.65:
@@ -1941,7 +2341,7 @@ def phase_distributed(bench_map, mvs_state, s_align, mvs_pts, stitch_map, stack8
     finally:
         shutil.rmtree(DIST_DIR, ignore_errors=True)
     log(f"[dist] phase 15 {time.perf_counter() - t_phase:.1f} s")
-    return sum(r["launches"][1] for r in gloo)
+    return sum(r["launches"][1] for r in gloo), sum(r["mvs_launches"][0] for r in gloo)
 
 
 def microbench() -> None:
@@ -1949,13 +2349,10 @@ def microbench() -> None:
     kernel timed with CUDA events after a warm-up launch."""
     import ctypes
 
-    from sfm_mvs_tpu_torch.ops import matching_cuda
+    from sfm_mvs_tpu_torch.ops import cuda_build
 
-    src = matching_cuda._SRC.with_name("microbench.cu")
-    out = matching_cuda._BUILD_DIR / "libmicrobench.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in matching_cuda._NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([matching_cuda._nvcc(), *flags, "-o", str(out), str(src)], check=True)
+    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    out, _ = cuda_build.compile_library(cuda_build.CSRC / "microbench.cu", flags, "microbench")
     lib = ctypes.CDLL(str(out))
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.mb_ffma.argtypes = [i, i, i, p, p]
@@ -2036,23 +2433,30 @@ def main(argv) -> int:
     if "--microbench" in argv:
         microbench()
         return 0
-    build_s, registers, spills = phase_build()
+    build_s, registers, spills, mvs_regs = phase_build()
+    if "--mvs" in argv:
+        from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
+
+        imgs, Rt_gt, K, gt_depths = render_staircase_sequence(**SCENE, return_depth=True)
+        phase_mvs_kernel(mvs_regs, _stair_chunk(imgs, Rt_gt, K, gt_depths))
+        return 0
     renders = Renders()
     try:
-        return run_phases(argv, smi, t_start, build_s, registers, spills, renders)
+        return run_phases(argv, smi, t_start, build_s, registers, spills, mvs_regs, renders)
     finally:
         renders.close()
 
 
-def run_phases(argv, smi, t_start, build_s, registers, spills, renders) -> int:
+def run_phases(argv, smi, t_start, build_s, registers, spills, mvs_regs, renders) -> int:
     from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
 
     t0 = time.time()
-    imgs, Rt_gt, _, gt_depths = render_staircase_sequence(**SCENE, return_depth=True)
+    imgs, Rt_gt, K, gt_depths = render_staircase_sequence(**SCENE, return_depth=True)
     log(f"[scene] rendered {len(imgs)} frames {SCENE['image_size']} in {time.time() - t0:.1f}s")
     cfg = main_config()
     k1 = phase_k1(sift_pair(imgs, cfg))
     k1_batch = phase_k1_batch(sift_pairs(imgs, cfg, 8), cfg.frontend.lowe_ratio)
+    mvs_kernel = phase_mvs_kernel(mvs_regs, _stair_chunk(imgs, Rt_gt, K, gt_depths))
     launches, ate_ba_off = phase_main(imgs, Rt_gt, cfg)
     n, bench_map = phase_bench(imgs, Rt_gt, cfg, ate_ba_off)
     launches += n
@@ -2062,14 +2466,16 @@ def run_phases(argv, smi, t_start, build_s, registers, spills, renders) -> int:
     launches += phase_cli(Rt_gt)
     launches += phase_loop_cli(Rt_gt)
     launches += phase_resume()
-    mvs_map, mvs_pts, s_align = phase_mvs(stack8, bench_map, Rt_gt, gt_depths)
+    mvs_map, mvs_pts, s_align, mvs_launches = phase_mvs(stack8, bench_map, Rt_gt, gt_depths)
     launches += phase_intrinsics(cfg, renders)
     launches += phase_global(cfg)
     launches += phase_klt(imgs, Rt_gt, cfg)
     n, batch_launches, stitch_map = phase_stitch(renders)
     launches += n
-    batch_launches += phase_distributed(bench_map, mvs_map, s_align, mvs_pts, stitch_map, stack8,
-                                        gt_depths)
+    n, n_mvs = phase_distributed(bench_map, mvs_map, s_align, mvs_pts, stitch_map, stack8,
+                                 gt_depths)
+    batch_launches += n
+    mvs_launches += n_mvs
     del stitch_map, mvs_pts
     if "--profile" in argv:
         phase_profile(imgs, cfg)
@@ -2085,6 +2491,11 @@ def run_phases(argv, smi, t_start, build_s, registers, spills, renders) -> int:
         "name": "knn2_batch", "route": "cuda", "source": "sfm_mvs_tpu_torch/csrc/knn2.cu",
         "replaces": "sfm_mvs_tpu/ops/matching_pallas.py:55", "launches": batch_launches,
         **k1_batch, "registers": registers, "spills": spills,
+    }, {
+        "name": "mvs_sweep", "route": "cuda", "source": "sfm_mvs_tpu_torch/csrc/mvs_sweep.cu",
+        "replaces": None, "launches": mvs_launches,
+        "registers": {k: v[0] for k, v in mvs_regs.items()},
+        "spills": {k: v[1] for k, v in mvs_regs.items()}, **mvs_kernel,
     }], "build_s": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The same Structure-from-Motion and multi-view-stereo system as the JAX
 package ``sfm_mvs_tpu`` (its reference), written in PyTorch for an NVIDIA
 H100. The package imports ``torch`` and numpy only. It holds SIFT
 detection, brute-force 2-NN matching with the Lowe ratio test (a
-hand-written CUDA kernel on the GPU, ``csrc/knn2.cu``), batched RANSAC
+hand-written CUDA kernel on the GPU, ``csrc/knn2.cu``; MVS pass 1 has
+its own, ``csrc/mvs_sweep.cu``), batched RANSAC
 (essential, PnP, homography), the incremental driver (sequential or
 view-graph bootstrap, per-frame or windowed bundle adjustment,
 checkpoints and resume, finalize with loop closure, duplicate merging,
@@ -17,7 +18,7 @@ match-and-verify, re-apply after BA), plane-sweep MVS and the CLI
 
 Subpackages mirror the JAX package's layout and names:
 
-ops     Geometry and vision functions on tensors, plus the CUDA matcher.
+ops     Geometry and vision functions on tensors, plus the CUDA kernels.
 models  Map store, bootstraps, incremental / global / KLT drivers, bundle
         adjustment, refinement, densification, stitching, MVS.
 utils   Config (shared dataclasses), IO and checkpoints, evaluation,

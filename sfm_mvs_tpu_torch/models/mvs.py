@@ -15,10 +15,14 @@ PyTorch port of ``sfm_mvs_tpu/models/mvs.py``:
 
 The JAX package vmaps over reference frames and maps over hypotheses one
 after another (``jax.lax.map``) to bound memory. Here the functions carry
-an explicit leading batch axis of reference frames, and the hypotheses
-run in a Python loop, each building its (B, M, H*W, 3) warp. No custom
-kernel: the JAX package leaves all of this to XLA. Sharding over a device
-mesh (``densify_map(mesh=...)``) waits for ROADMAP A13.
+an explicit leading batch axis of reference frames. On CUDA tensors pass
+1 runs two hand-written kernels (``ops/mvs_cuda.py``,
+``csrc/mvs_sweep.cu``), one launch each a pyramid level: the zero-mean
+filter of the references and neighbours, and the sweep over all the
+level's hypotheses. On CPU tensors it runs the plain code
+(:func:`_zero_mean_plain`, :func:`_sweep_select_plain`): the hypotheses
+in a Python loop, each building its (B, M, H*W, 3) warp, in the JAX
+package's summation order. The JAX package leaves all of this to XLA.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from sfm_mvs_tpu_torch.models.map_store import MapState
+from sfm_mvs_tpu_torch.ops import mvs_cuda
 from sfm_mvs_tpu_torch.ops import projection as proj
 from sfm_mvs_tpu_torch.parallel import mesh as meshlib
 from sfm_mvs_tpu_torch.utils import profiling
@@ -189,6 +194,19 @@ def _pixel_rays(H: int, W: int, K: torch.Tensor, dist=None, stride: int = 1) -> 
     return rays
 
 
+def _zero_mean(refs: torch.Tensor, nbrs: torch.Tensor, radius: int):
+    """(refs, nbrs) minus their box filters of `radius`: refs (B, H, W),
+    nbrs (B, M, H, W). One kernel launch on CUDA tensors, the plain code on
+    CPU tensors."""
+    if refs.device.type == "cpu":
+        return _zero_mean_plain(refs, nbrs, radius)
+    return mvs_cuda.zero_mean(refs, nbrs, radius)
+
+
+def _zero_mean_plain(refs: torch.Tensor, nbrs: torch.Tensor, radius: int):
+    return refs - _box_filter(refs, radius), nbrs - _box_filter(nbrs, radius)
+
+
 def _sweep_select(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets, cost_radius,
                   dist=None, sample_mode="bilinear", extra=()):
     """Evaluate per-pixel inverse-depth hypotheses `center + offsets[d]`
@@ -200,12 +218,28 @@ def _sweep_select(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets, cost_radiu
     the same without the batch axis. The warped neighbor point of a
     reference pixel with ray r at inverse depth iv is R_rel r + t_rel iv.
     Returns (invd_map, best_cost, mean_cost, den_at_best).
+
+    CUDA tensors take the sweep kernel (``mvs_cuda.sweep_select``, one
+    launch); CPU tensors take :func:`_sweep_select_plain`.
     """
     if ref_zm.dim() == 2:
         out = _sweep_select(ref_zm[None], nbrs_zm[None], Kl, R_rel[None], t_rel[None],
                             center[None], offsets[None], cost_radius, dist=dist,
                             sample_mode=sample_mode, extra=tuple(e[None] for e in extra))
         return tuple(o[0] for o in out)
+    if ref_zm.device.type == "cpu":
+        return _sweep_select_plain(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets,
+                                   cost_radius, dist=dist, sample_mode=sample_mode, extra=extra)
+    return mvs_cuda.sweep_select(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets, cost_radius,
+                                 dist=dist, sample_mode=sample_mode, extra=extra)
+
+
+def _sweep_select_plain(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets, cost_radius,
+                        dist=None, sample_mode="bilinear", extra=()):
+    """:func:`_sweep_select` in plain PyTorch, batched inputs only: one
+    chain of ops per hypothesis, in the JAX package's summation order. Any
+    device and float dtype (the kernel's check on the card runs it in
+    float64)."""
     B, H, W = ref_zm.shape
     rays = _pixel_rays(H, W, Kl, dist).reshape(-1, 3)  # (HW, 3)
     a = torch.einsum("bmij,pj->bmpi", R_rel, rays)  # (B, M, HW, 3)
@@ -291,7 +325,7 @@ def _plane_sweep_batch(ref_b, nbr_b, pose_b, nposes_b, K, lo_b, hi_b, num_depths
     """
     R_ref, t_ref = pose_b[:, :, :3], pose_b[:, :, 3]
     R_n, t_n = nposes_b[..., :3], nposes_b[..., 3]
-    R_rel = torch.einsum("bmij,bkj->bmik", R_n, R_ref)  # (B, M, 3, 3)
+    R_rel = torch.einsum("bmij,bkj->bmik", R_n, R_ref).contiguous()  # (B, M, 3, 3)
     t_rel = t_n - torch.einsum("bmij,bj->bmi", R_rel, t_ref)  # (B, M, 3)
 
     # Pyramids, zero-meaned per level in each image's own frame.
@@ -299,8 +333,7 @@ def _plane_sweep_batch(ref_b, nbr_b, pose_b, nposes_b, K, lo_b, hi_b, num_depths
     for _ in range(coarse_levels):
         refs.append(_downsample2(refs[-1]))
         nbrs.append(_downsample2(nbrs[-1]))
-    refs_zm = [r - _box_filter(r, cost_radius) for r in refs]
-    nbrs_zm = [n - _box_filter(n, cost_radius) for n in nbrs]
+    refs_zm, nbrs_zm = zip(*[_zero_mean(r, n, cost_radius) for r, n in zip(refs, nbrs)])
 
     inv_lo = 1.0 / hi_b
     inv_hi = 1.0 / lo_b

@@ -1,1 +1,2 @@
-"""Geometry and vision functions on tensors, and the CUDA 2-NN matcher."""
+"""Geometry and vision functions on tensors, the CUDA 2-NN matcher and
+MVS pass 1's CUDA kernels."""

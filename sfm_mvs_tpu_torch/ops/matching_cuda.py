@@ -33,24 +33,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from sfm_mvs_tpu_torch.ops import cuda_build
 from sfm_mvs_tpu_torch.ops.matching import Matches, knn_match, squared_norms
 from sfm_mvs_tpu_torch.utils import profiling
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "knn2.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_SRC = cuda_build.CSRC / "knn2.cu"
 
 # The kernel's block tile and widest descriptor (checked against the
 # library's own when it loads), and the blocks it keeps resident per SM
@@ -64,15 +56,6 @@ _lib_lock = threading.Lock()
 build_log = ""
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA 2-NN kernel cannot be built")
-    return path
-
-
 def build() -> Path:
     """Compile csrc/knn2.cu into a shared library (cached by source hash).
 
@@ -80,22 +63,10 @@ def build() -> Path:
     in the module attribute ``build_log``.
     """
     global build_log
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libknn2_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    path, log = cuda_build.compile_library(_SRC, cuda_build.NVCC_FLAGS, "knn2")
+    if log:
+        build_log = log
+    return path
 
 
 def _load():
