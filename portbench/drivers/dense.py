@@ -11,10 +11,17 @@ ends when the call that crosses ``--seconds`` returns.
 Traffic parameters: ``gain`` ([low, high] of the per-call gain),
 ``warmup_calls``, ``checked_share`` (the chance, drawn from the seed, that
 a call's outputs are kept for the reference; the last call is always
-kept), ``checked_views`` (views of each kept call, drawn from the seed,
-whose pass-1 and pass-2 maps the reference recomputes) and
-``profile_seconds`` (the stretch at the end of a --trace 1 window under
-torch.profiler).
+kept), ``checked_views`` (views of each kept call, drawn from the seed
+when the call is kept, whose pass-1 and pass-2 maps the reference
+recomputes) and ``profile_seconds`` (the stretch at the end of a --trace 1
+window under torch.profiler).
+
+A kept call keeps on the card only what the reference reads: its cloud
+(on the host, as the call returns it), its filtered, fused depth and
+valid maps (every view's: the depth and cloud checks read them all), and
+for each checked view its pass-1 depth, confidence and valid maps with
+the pass-1 depths of its geometric neighbours, gathered into tensors of
+their own (a few device copies; no host copy inside the window).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from portbench import pipeline, reference
 from portbench.harness import (Outcome, Profiler, Spans, TraceData, power_limit_w, seed_stream,
-                               settle, sync)
+                               sync, window_start)
 
 # Fused depths of one pixel "agree" within this share of the reference's.
 FUSE_REL = 1e-3
@@ -70,10 +77,43 @@ class SweepRecorder:
         self.mvs._plane_sweep_batch = self.orig
 
 
-def views_of(batches, n: int):
-    """The (depth, confidence, valid) maps of the first n swept views."""
-    return [torch.cat([getattr(dm, f) for dm in batches])[:n]
-            for f in ("depth", "confidence", "valid")]
+def slot_of(batches, v: int):
+    """(pass-1 batch, slot) of the call's v-th swept slot, or None past the
+    last slot."""
+    for dm in batches:
+        if v < dm.depth.shape[0]:
+            return dm, v
+        v -= dm.depth.shape[0]
+    return None
+
+
+def checked_call(g, pts, dms, batches, views, geo_k: int, n: int):
+    """What the reference reads of one kept call: (gain, cloud, [(view,
+    fused depth, fused valid)] for every view, {checked view: (pass-1
+    depths of the view and its geometric neighbours (1 + k, H, W), its
+    confidence, its valid map), or None where the call swept no slot for
+    one of them})."""
+    fused = [(r, dm.depth, dm.valid) for r, dm in sorted(dms.items())]
+    p1 = {}
+    for r in views:
+        need = [slot_of(batches, v) for v in [r] + reference.geo_neighbors(r, n, geo_k)]
+        if any(s is None for s in need):
+            p1[r] = None
+            continue
+        (dm, j) = need[0]
+        p1[r] = (torch.stack([b.depth[i] for b, i in need]), dm.confidence[j].clone(),
+                 dm.valid[j].clone())
+    return g, pts, fused, p1
+
+
+def tiny(config: dict, traffic: dict):
+    """The cell cut for the CPU tests: 6 views of 240x160 over 12 deg, a map
+    of 6 cameras and 4096 points, 16 depths, a 0.5 s stretch."""
+    config = pipeline.tiny(config)
+    config["scene"].update(num_cameras=6, arc_degrees=12.0)
+    config["sfm"]["map"] = {"max_cameras": 6, "max_points": 4096}
+    config["mvs"]["num_depths"] = 16
+    return config, dict(traffic, profile_seconds=0.5)
 
 
 def control_fuse(depth_b, conf_b, valid_b, pose_b, nbr_depth_b, nbr_pose_b, nbr_valid_b,
@@ -145,7 +185,7 @@ def run(ctx) -> Outcome:
         sync(ctx.device)
         call_s = time.perf_counter() - t_call
     ctx.log("warm-up")
-    settle()
+    window_start(ctx)
     setup_s = time.perf_counter() - ctx.t_start
 
     data = TraceData(spans=spans.seconds, counts={}) if ctx.trace else None
@@ -155,15 +195,23 @@ def run(ctx) -> Outcome:
         spans.wrap(mvs, "_depth_ranges", "mvs_sweep")
         spans.wrap(mvs, "_plane_sweep_batch", "mvs_sweep")
         spans.wrap(mvs, "_fuse_batch", "mvs_fuse")
-    kept, views, views_timed, last = [], 0, 0, None
+    mv = conf["mvs"]
+    geo_k = max(mv["num_neighbors"], mv["geo_num_neighbors"])
+
+    def draw():
+        return [int(v) for v in rng.choice(n, size=tr["checked_views"], replace=False)]
+
+    kept, views, views_timed, last, last_kept = [], 0, 0, None, False
     t_win = time.perf_counter()
     deadline = t_win + ctx.seconds
     prof_at = deadline - tr["profile_seconds"]
     while True:
         t_call = time.perf_counter()
+        # The stretch: from prof_at, and at least the window's last call, which
+        # may take up to twice the last call's time on a loaded host.
         if (prof is not None and prof.prof is None
-                and (t_call >= prof_at or t_call + call_s >= deadline)):
-            prof.start()  # the stretch: from prof_at, and at least the window's last call
+                and (t_call >= prof_at or t_call + 2 * call_s >= deadline)):
+            prof.start()
             spans.profiling = True
         keep = rng.random() < tr["checked_share"]
         g = float(rng.uniform(*tr["gain"]))
@@ -174,16 +222,14 @@ def run(ctx) -> Outcome:
         if prof is None or prof.prof is None:
             views_timed += len(dms)
         call_s = time.perf_counter() - t_call
-        last = (g, pts, dms, rec.take())
+        last, last_kept = (g, pts, dms, rec.take()), keep
         if keep:
-            kept.append(last)
+            kept.append(checked_call(*last, draw(), geo_k, n))
         if time.perf_counter() >= deadline:
             break
     sync(ctx.device)
     window_s = time.perf_counter() - t_win
     rec.keep = False
-    if not kept or kept[-1] is not last:
-        kept.append(last)
     if prof is not None:
         if prof.prof is not None:  # a window too short to reach the stretch has no trace
             prof.stop(data)
@@ -191,17 +237,15 @@ def run(ctx) -> Outcome:
         spans.unwrap_all()
         data.counts["views"] = views_timed
         data.power_limit_w = power_limit_w() if ctx.device.type == "cuda" else None
+    if not last_kept:
+        kept.append(checked_call(*last, draw(), geo_k, n))
+    del last, dms, pts
     rec.close()
     mvs._fuse_batch = fuse_orig
 
-    checks = []
-    for g, pts, dms, batches in kept:
-        filtered = [(r, dm.depth, dm.valid) for r, dm in sorted(dms.items())]
-        views_checked = [int(v) for v in rng.choice(n, size=tr["checked_views"], replace=False)]
-        checks.append((g, pts, filtered, views_of(batches, n), views_checked))
     sparse = (state.points.clone(), state.point_valid.clone(), state.poses[:n].clone())
     refs = {"state": state, "grays": grays, "bgrs": bgrs, "images": sc.images}
-    del last, kept, state, grays, bgrs
+    del state, grays, bgrs
 
     def free():
         refs.clear()
@@ -209,7 +253,7 @@ def run(ctx) -> Outcome:
             torch.cuda.empty_cache()
 
     def judge() -> dict:
-        return readings(checks, sparse, stack8, sc, conf)
+        return readings(kept, sparse, stack8, sc, conf)
 
     return Outcome(setup_s=setup_s, attempted=views, failed=0,
                    end_to_end={"dense_views_per_s": views / window_s}, trace=data,
@@ -244,7 +288,7 @@ def readings(checks, sparse, stack8, sc, conf) -> dict:
     out = {"pose_ate": ate, "sweep_mismatch": 0.0, "fuse_mismatch": 0.0, "depth_rel_rms": 0.0,
            "depth_median": 0.0, "depth_uncovered": 0.0, "cloud_gap": 0.0}
     geo_k = max(mv["num_neighbors"], mv["geo_num_neighbors"])
-    for g, pts, dmaps, (p1_depth, p1_conf, p1_valid), views_checked in checks:
+    for g, pts, dmaps, pass1 in checks:
         got = {}
         host = [(r, d.cpu().numpy(), v.cpu().numpy()) for r, d, v in dmaps]
         missing = n - len(host)
@@ -254,21 +298,22 @@ def readings(checks, sparse, stack8, sc, conf) -> dict:
         got["cloud_gap"] = reference.cloud_gap(pts, dmaps, poses, sc.K, mv["stride"])
         fused = {r: (d, v) for r, d, v in dmaps}
         sweep_bad = fuse_bad = 0.0
-        for r in views_checked:
-            gn = reference.geo_neighbors(r, n, geo_k)
-            if max([r] + gn) >= p1_depth.shape[0]:  # a view the call did not sweep
+        for r, maps in pass1.items():
+            if maps is None:  # a view the call did not sweep
                 sweep_bad = fuse_bad = math.inf
                 continue
+            p1_depth, p1_conf, p1_valid = maps
+            gn = reference.geo_neighbors(r, n, geo_k)
             nb = reference.sweep_neighbors(r, n, mv["num_neighbors"])
             imgs = torch.stack([pipeline.gray_of(stack8, i) * g for i in [r] + nb])
             lo, hi = ranges[r]
             ref_d, _, ref_v = reference.plane_sweep(imgs[0], imgs[1:], poses[r], poses[nb], sc.K,
                                                     lo, hi, p1)
             step = (1 / lo - 1 / hi) / max(p1["num_depths"] - 1, 1) / 2 ** p1["coarse_levels"]
-            sw = reference.sweep_mismatch((p1_depth[r], p1_valid[r]), (ref_d, ref_v), step,
+            sw = reference.sweep_mismatch((p1_depth[0], p1_valid), (ref_d, ref_v), step,
                                           sc.depths[r] > 0.1)
-            ref2 = reference.consistency(p1_depth[r], p1_conf[r], p1_valid[r], poses[r],
-                                         p1_depth[gn], poses[gn], sc.K, mv,
+            ref2 = reference.consistency(p1_depth[0], p1_conf, p1_valid, poses[r],
+                                         p1_depth[1:], poses[gn], sc.K, mv,
                                          min(mv["geo_min_consistent"], len(gn)))
             fu = reference.fuse_mismatch(fused.get(r, (ref2[0], ~ref2[1])), ref2, FUSE_REL)
             print(f"portbench: gain {g:.4f} view {r}: sweep_mismatch {sw:.6e}, "

@@ -51,11 +51,30 @@ def seed_int(*words: int) -> int:
     return int(np.random.SeedSequence([int(w) for w in words]).generate_state(1, np.uint64)[0])
 
 
-def settle() -> None:
-    """Before a window: collect, then keep the set-up's objects out of the
-    collector's later passes, so that they do not lengthen the window's."""
+def window_start(ctx) -> None:
+    """What every driver calls between its warm-up and its window: collect,
+    then keep the set-up's objects out of the collector's later passes, so
+    that they do not lengthen the window's. In a --trace 1 run the port's
+    tracer (``sfm_mvs_tpu_torch/utils/profiling.py``) is then reset and
+    turned on; :meth:`Profiler.stop` turns it off at the end of the
+    profiled stretch and hands its record to ``TraceData.program``, and
+    :func:`run_cell` drops the record when the driver returns. A --trace 0
+    run never turns it on."""
     gc.collect()
     gc.freeze()
+    if ctx.trace:
+        from sfm_mvs_tpu_torch.utils import profiling
+
+        profiling.reset()
+        profiling.enable()
+
+
+def tracer_off() -> None:
+    """Turn the port's tracer off and drop what it recorded."""
+    from sfm_mvs_tpu_torch.utils import profiling
+
+    profiling.disable()
+    profiling.reset()
 
 
 def sync(device) -> None:
@@ -167,15 +186,20 @@ class TraceData:
     idle_by_span: dict = dataclasses.field(default_factory=dict)  # span -> idle seconds
     k1_launches: list = dataclasses.field(default_factory=list)  # (rows, cols, dim, s0, s1)
     power_limit_w: Optional[float] = None
+    # The port's own spans and counters beside the trace (program.program_data);
+    # empty where the tracer was off or the window never reached the stretch.
+    program: dict = dataclasses.field(default_factory=dict)
 
 
 class Profiler:
-    """torch.profiler over a steady stretch of the window."""
+    """torch.profiler over a steady stretch of the window, and the port's
+    tracer (on since :func:`window_start`) read against it."""
 
     def __init__(self, device):
         self.device = device
         self.prof = None
-        self.t0 = self.wall = 0.0
+        self.t0_ns = 0  # the stretch's start, on the tracer's clock (perf_counter_ns)
+        self.wall = 0.0
 
     def start(self):
         from torch.profiler import ProfilerActivity, profile
@@ -186,14 +210,23 @@ class Profiler:
             acts.append(ProfilerActivity.CUDA)
         self.prof = profile(activities=acts)
         self.prof.__enter__()
-        self.t0 = time.perf_counter()
+        self.t0_ns = time.perf_counter_ns()
 
     def stop(self, data: TraceData):
+        from sfm_mvs_tpu_torch.utils import profiling
+
+        from portbench import program
+
         sync(self.device)
-        self.wall = time.perf_counter() - self.t0
+        self.wall = (time.perf_counter_ns() - self.t0_ns) / 1e9
+        traced = profiling.enabled()
+        profiling.disable()
         self.prof.__exit__(None, None, None)
         reduce_trace(self.prof, data)
         data.window_s = self.wall
+        if traced:
+            data.program = program.program_data(self.prof, profiling.export(), self.t0_ns,
+                                                SPAN_PREFIX)
 
 
 def reduce_trace(prof, data: TraceData) -> None:
@@ -321,7 +354,10 @@ def run_cell(ctx: Context, manifest: dict, limits: dict) -> dict:
     if ctx.device.type == "cuda":
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(ctx.device)
-    out: Outcome = driver.run(ctx)
+    try:
+        out: Outcome = driver.run(ctx)
+    finally:  # also where the window never reached the profiled stretch
+        tracer_off()
     peak = (torch.cuda.max_memory_allocated(ctx.device) if ctx.device.type == "cuda" else 0)
     out.free()
     readings = out.judge()

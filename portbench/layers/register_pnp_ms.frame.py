@@ -1,0 +1,11 @@
+"""register_pnp_ms.frame: host ms a ``register_frame`` call in PnP-RANSAC
+(the self time of the port's ``register.pnp`` span), over the window
+before the profiled stretch."""
+
+from portbench.program import get, ratio
+
+
+def read(data):
+    p = data.program
+    return ratio(get(p, "before", "spans", "register.pnp", "self_ms"),
+                 get(p, "before", "spans", "register", "calls"))

@@ -9,6 +9,7 @@ Every call goes through the port's module attributes at call time
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import NamedTuple
 
@@ -29,6 +30,19 @@ def sfm_config(config: dict):
     for key, value in config["sfm"].items():
         kw[key] = sub[key](**value) if key in sub else value
     return cfg_mod.SfmConfig(**kw)
+
+
+def tiny(config: dict) -> dict:
+    """The cut every driver's ``tiny()`` starts from, for the CPU tests:
+    240x160 frames with the intrinsics scaled to them, 1024 features and
+    256 RANSAC hypotheses. A copy; `config` is left as it is."""
+    config = copy.deepcopy(config)
+    small = dict(image_size=[240, 160], fx=300.0, fy=301.0, cx=119.0, cy=81.0)
+    config["scene"].update(small)
+    config["sfm"].update({k: small[k] for k in ("fx", "fy", "cx", "cy")})
+    config["sfm"]["frontend"]["max_features"] = 1024
+    config["sfm"]["ransac"] = {"essential_iters": 256, "pnp_iters": 256}
+    return config
 
 
 def render(ctx):

@@ -6,27 +6,18 @@ The port records spans and counters where its work happens (its tracer,
 torch.profiler trace through the tracer's clock anchor and attributes the
 trace to them: each CUDA launch (``cudaLaunchKernel`` and its variants) by
 its host start, and each device-idle gap by the time it began, to the
-innermost program span open then. It also holds the per-layer metrics
-that read the result (:data:`METRICS`).
+innermost program span open then.
 
-Run a cell with the tracer on, as a ``--trace 1`` run with the program's
-readings added to its line:
-
-    python3 -m portbench.program --workload fountain11-incremental --seed 5 --seconds 51
-
-The tracer is turned on after warm-up and off when the profiled stretch
-ends; host times are read from the window before the stretch, launches and
-idle from the stretch, counters from the whole window. ``--tracer 0`` runs
-the same with the tracer off (its cost: compare ``register_ms.frame`` and
-``ba_ms.frame``). Nothing here changes the benchmark's own command.
+In a --trace 1 run the harness turns the tracer on after warm-up
+(``harness.window_start``) and off when the profiled stretch ends, and
+puts :func:`program_data`'s result in ``TraceData.program``: host times
+from the window before the stretch, launches and idle from the stretch,
+counters from the whole window. The per-layer readers of the
+``program_span`` and ``program_counter`` metrics (``layers/<metric>.py``)
+read it with :func:`get`, :func:`ratio` and :func:`launches_in`.
 """
 
 from __future__ import annotations
-
-import argparse
-import json
-import sys
-import time
 
 LAUNCH_NAMES = ("LaunchKernel", "LaunchCooperativeKernel")
 
@@ -176,7 +167,8 @@ def program_data(prof, exported: dict, stretch_ns: int, prefix: str) -> dict:
     }
 
 
-def _get(data, *path):
+def get(data, *path):
+    """data[path[0]][path[1]]..., or None where a key is missing."""
     for k in path:
         if not isinstance(data, dict) or k not in data:
             return None
@@ -184,177 +176,20 @@ def _get(data, *path):
     return data
 
 
-def _ratio(num, den, scale=1.0):
+def ratio(num, den, scale=1.0):
+    """scale * num / den, or None where either is missing or den is 0."""
     if num is None or not den:
         return None
     return scale * num / den
 
 
-def _stretch(data, name, key):
-    return _get(data, "stretch", "spans", name, key)
-
-
-def _calls_before(data, name):
-    return _get(data, "before", "spans", name, "calls")
-
-
-def _mvs_sweep_launches(d):
-    parts = [_stretch(d, n, "launches") for n in ("mvs.ranges", "mvs.sweep")]
+def launches_in(data, *names):
+    """CUDA launches in the stretch inside the spans of these names (each
+    with its subtree), or None where the trace holds no launch at all (no
+    card) or none of the spans ran in the stretch."""
+    if not get(data, "launch_events"):
+        return None
+    parts = [get(data, "stretch", "spans", n, "launches") for n in names]
     if all(p is None for p in parts):
         return None
-    return _ratio(sum(p or 0 for p in parts), _get(d, "stretch", "counters", "mvs.views"))
-
-
-# The per-layer metrics that read the program's spans and counters:
-# metric -> (unit, better, function of program_data()'s dict -> value or None).
-METRICS = {
-    "detect_launches.frame": ("launches", "lower", lambda d: _ratio(
-        _stretch(d, "detect", "launches"), _get(d, "stretch", "counters", "detect.frames"))),
-    "register_launches.frame": ("launches", "lower", lambda d: _ratio(
-        _stretch(d, "register", "launches"), _stretch(d, "register", "calls"))),
-    "register_match_ms.frame": ("ms", "lower", lambda d: _ratio(
-        _get(d, "before", "spans", "register.match", "ms"), _calls_before(d, "register"))),
-    "register_pnp_ms.frame": ("ms", "lower", lambda d: _ratio(
-        _get(d, "before", "spans", "register.pnp", "self_ms"), _calls_before(d, "register"))),
-    "register_tri_ms.frame": ("ms", "lower", lambda d: _ratio(
-        _get(d, "before", "spans", "register.triangulate", "self_ms"),
-        _calls_before(d, "register"))),
-    "ba_launches.frame": ("launches", "lower", lambda d: _ratio(
-        _stretch(d, "ba", "launches"), _stretch(d, "ba", "calls"))),
-    "ba_accepted_share": ("%", "higher", lambda d: _ratio(
-        _get(d, "window", "ba.accepted"), _get(d, "window", "ba.lm_steps"), 100.0)),
-    "k1_valid_share": ("%", "higher", lambda d: _ratio(
-        _get(d, "window", "k1.valid_pairs"), _get(d, "window", "k1.slots"), 100.0)),
-    "mvs_sweep_launches.view": ("launches", "lower", _mvs_sweep_launches),
-    "mvs_copy_ms.view": ("ms", "lower", lambda d: _ratio(
-        _get(d, "before", "spans", "mvs.copy", "ms"), _get(d, "before", "counters",
-                                                           "mvs.views"))),
-}
-
-
-def read_metrics(data) -> dict:
-    """{metric: value} for every metric of :data:`METRICS` that finds
-    something to read in `data` (None or {} finds nothing)."""
-    out = {}
-    for name, (_, _, fn) in METRICS.items():
-        v = fn(data or {})
-        if v is not None:
-            out[name] = v
-    return out
-
-
-def span_cost_us(n: int = 200_000) -> dict:
-    """Host us per ``with profiling.span(...)`` with the tracer off and
-    on, and per ``profiling.count`` on (the tracer is left off and empty)."""
-    from sfm_mvs_tpu_torch.utils import profiling
-
-    out = {}
-    for on in (False, True):
-        profiling.reset()
-        (profiling.enable if on else profiling.disable)()
-        t = time.perf_counter()
-        for _ in range(n):
-            with profiling.span("s"):
-                pass
-        out["span_on" if on else "span_off"] = (time.perf_counter() - t) / n * 1e6
-        if on:
-            t = time.perf_counter()
-            with profiling.span("s"):
-                for _ in range(n):
-                    profiling.count("c", 1)
-            out["count_on"] = (time.perf_counter() - t) / n * 1e6
-    profiling.disable()
-    profiling.reset()
-    return out
-
-
-class _Capture:
-    """Turns the tracer on after a driver's warm-up (its ``settle``) and
-    hands the profiled stretch's attribution over when the harness's
-    profiler stops; ``undo`` restores what it patched."""
-
-    def __init__(self, driver, tracer: bool, prefix: str):
-        from portbench import harness
-        from sfm_mvs_tpu_torch.utils import profiling
-
-        self.harness, self.profiling, self.driver = harness, profiling, driver
-        self.tracer, self.prefix = tracer, prefix
-        self.data = None
-        self.saved = [(driver, "settle", driver.settle),
-                      (harness.Profiler, "start", harness.Profiler.start),
-                      (harness.Profiler, "stop", harness.Profiler.stop)]
-        settle, start, stop = (s[2] for s in self.saved)
-        cap = self
-
-        def settled():
-            settle()
-            if cap.tracer:
-                profiling.reset()
-                profiling.enable()
-
-        def started(prof_self):
-            start(prof_self)
-            cap.stretch_ns = time.perf_counter_ns()
-
-        def stopped(prof_self, data):
-            stop(prof_self, data)
-            if cap.tracer:
-                cap.data = program_data(prof_self.prof, profiling.export(), cap.stretch_ns,
-                                        cap.prefix)
-            profiling.disable()
-            profiling.reset()
-
-        driver.settle = settled
-        harness.Profiler.start = started
-        harness.Profiler.stop = stopped
-
-    def undo(self):
-        for owner, attr, fn in self.saved:
-            setattr(owner, attr, fn)
-
-
-def main(argv) -> int:
-    from portbench import run
-
-    run._cache_env()
-    p = argparse.ArgumentParser(prog="portbench.program")
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--seconds", type=float, required=True)
-    p.add_argument("--tracer", type=int, choices=(0, 1), default=1)
-    args = p.parse_args(argv)
-    import torch
-
-    from portbench import harness
-
-    manifest = harness.load_json(run.HERE.parent / "BENCHMARK.json")
-    cell, config, traffic, limits = run.cell_files(manifest, args.workload)
-    if not torch.cuda.is_available():
-        print("portbench.program: CUDA is not available", file=sys.stderr)
-        return 2
-    print(f"portbench.program: span cost {json.dumps(span_cost_us())}", file=sys.stderr)
-    ctx = harness.Context(cell=cell, config=config, traffic=traffic, seed=args.seed,
-                          seconds=args.seconds, trace=True, device=torch.device("cuda", 0),
-                          t_start=run.T_START)
-    cap = _Capture(harness.load_driver(traffic["driver"]), bool(args.tracer), harness.SPAN_PREFIX)
-    try:
-        result = harness.run_cell(ctx, manifest, limits)
-    finally:
-        cap.undo()
-    for name, v in read_metrics(cap.data).items():
-        result["metrics"][name] = {"value": float(v), "unit": METRICS[name][0]}
-    if cap.data is not None:
-        st = cap.data["stretch"]["spans"]
-        placed = sum(r["launches_self"] for k, r in st.items() if k is not None)
-        outside = st.get(None, {}).get("launches", 0)
-        result["program"] = {
-            "kernels": cap.data["kernels"], "launch_events": cap.data["launch_events"],
-            "launches_in_spans": placed, "launches_outside": outside,
-            "stretch": {str(k): v for k, v in st.items()},
-            "before": cap.data["before"], "window_counters": cap.data["window"]}
-    print(json.dumps(result), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    return sum(p or 0 for p in parts)

@@ -1,6 +1,8 @@
 """The program's spans beside the trace (``portbench/program.py``): the
-attribution rule on a synthetic trace, the metrics on nothing, and tiny
-runs on the CPU with the tracer off (``--trace 0``) and on."""
+attribution rule on a synthetic trace, and tiny runs on the CPU with the
+tracer off (``--trace 0``) and on (``--trace 1``)."""
+
+import types
 
 import pytest
 
@@ -43,39 +45,76 @@ def test_spans_closing_together_and_empty_spans():
     assert program.innermost([4.0, 6.0, 7.0, 9.9, 10.0], spans, [-1, 0, 1]) == [0, 1, 1, 1, -1]
 
 
-def test_the_metrics_find_nothing_in_nothing():
-    assert program.read_metrics(None) == {} and program.read_metrics({}) == {}
-    for unit, better, fn in program.METRICS.values():
-        assert fn({}) is None and better in ("lower", "higher") and unit
-    assert len(program.METRICS) == 10
+def run_spied(monkeypatch, cell, **kw):
+    """run_tiny with the driver's Outcome kept: (result line, Outcome)."""
+    seen = []
+    load = harness.load_driver
+
+    def spy(name):
+        driver = load(name)
+
+        def run(ctx):
+            seen.append(driver.run(ctx))
+            return seen[-1]
+
+        return types.SimpleNamespace(run=run, tiny=driver.tiny)
+
+    monkeypatch.setattr(harness, "load_driver", spy)
+    res = tiny.run_tiny(cell, **kw)
+    return res, seen[0]
 
 
-def test_a_trace_0_run_leaves_the_tracer_off():
+PROGRAM = ("program_span", "program_counter")
+
+
+def card_only(metric):
+    """A reader that declares it finds nothing on the CPU (``CARD_ONLY``)."""
+    return harness.load_reader(metric).__globals__.get("CARD_ONLY", False)
+
+
+@pytest.mark.parametrize("cell", sorted(tiny.CELLS))
+def test_a_trace_0_run_leaves_the_tracer_off(monkeypatch, cell):
     from sfm_mvs_tpu_torch.utils import profiling
 
-    profiling.disable()
-    profiling.reset()
-    tiny.run_tiny("fountain11-incremental", seconds=0.5, trace=False)
-    assert not profiling.enabled() and profiling.export()["spans"] == []
+    turned_on = []
+    monkeypatch.setattr(profiling, "enable", lambda: turned_on.append(1))
+    res, out = run_spied(monkeypatch, cell, seconds=0.5, trace=False)
+    assert not turned_on and not profiling.enabled()
+    assert profiling.export()["spans"] == [] and out.trace is None
+    assert not {m["name"] for m in tiny.MANIFEST["per_layer"]} & set(res["metrics"])
 
 
-def test_a_traced_tiny_run_reads_the_program():
+@pytest.mark.parametrize("cell", sorted(tiny.CELLS))
+def test_a_traced_tiny_run_reads_the_programs_metrics(monkeypatch, cell):
+    """The CPU makes no CUDA launch: its ATen ops stand in for launches, so
+    that the trace's launch calls are mapped onto the port's spans."""
     from sfm_mvs_tpu_torch.utils import profiling
 
-    cap = program._Capture(harness.load_driver("incremental"), True, harness.SPAN_PREFIX)
-    try:
-        out = tiny.run_tiny("fountain11-incremental", seconds=8.0, trace=True)
-    finally:
-        cap.undo()
-    assert out["correct"] and not profiling.enabled()
-    data = cap.data
-    assert data["kernels"] == data["launch_events"] == 0  # the CPU has no CUDA launches
+    monkeypatch.setattr(program, "is_launch", lambda name: name.startswith("aten::"))
+    res, out = run_spied(monkeypatch, cell, seconds=8.0, trace=True)
+    assert res["correct"] and not profiling.enabled() and profiling.export()["spans"] == []
+    data = out.trace.program
+    assert data["launch_events"] > 0 and data["kernels"] == 0  # no device on the CPU
+    placed = sum(r["launches_self"] for k, r in data["stretch"]["spans"].items() if k)
+    assert placed > 0
+    mine = {m["name"] for m in tiny.MANIFEST["per_layer"]
+            if m["source"] in PROGRAM and cell in m.get("workloads", [cell])}
+    assert mine
+    for name in sorted(mine):
+        if card_only(name):
+            assert name not in res["metrics"]
+        else:
+            assert res["metrics"][name]["value"] > 0, name
+
+
+def test_the_program_record_of_a_traced_incremental_run(monkeypatch):
+    res, out = run_spied(monkeypatch, "fountain11-incremental", seconds=8.0, trace=True)
+    data = out.trace.program
     before = data["before"]["spans"]
     assert before["register"]["calls"] > 0 and before["ba.lm"]["calls"] > 0
     window = data["window"]
     assert window["ba.lm_steps"] == 8 * (before["ba"]["calls"] + data["stretch"]["spans"][
         "ba"]["calls"])
-    got = program.read_metrics(data)
-    assert {"register_match_ms.frame", "register_pnp_ms.frame", "register_tri_ms.frame",
-            "ba_accepted_share"} <= set(got)
-    assert 0.0 < got["ba_accepted_share"] <= 100.0
+    assert 0.0 < res["metrics"]["ba_accepted_share"]["value"] <= 100.0
+    # Without a card the trace holds no launch: the launch metrics find nothing.
+    assert data["launch_events"] == 0 and "ba_launches.frame" not in res["metrics"]
