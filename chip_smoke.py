@@ -73,7 +73,8 @@ Phases, each printing one line (any failure exits non-zero):
    >= 15,000 map points after finalize with at least half of them kept by
    sparse.ply's cleaning, >= 1,000,000 finite dense vertices, the metrics
    events) and that every match went through K1 (view-graph pairs +
-   bootstrap + registrations + swept pairs); prints each stage's wall.
+   bootstrap tries, the guard's retries counted, + registrations + swept
+   pairs); prints each stage's wall.
 8. resume: the CLI with ``--bootstrap seq --checkpoint-every 20``, then
    again with ``--resume`` from frame 40 into the same output; the two
    pose.csv files must be equal byte for byte.
@@ -193,19 +194,14 @@ def tracer_start() -> None:
     profiling.enable()
 
 
-def k1_counts(records=()) -> tuple:
+def k1_counts() -> tuple:
     """(single launches, batched launches, pairs of the batched launches)
-    since :func:`tracer_start`, from the tracer's ``k1.*`` counters: what
-    it holds now plus what ``IncrementalSfM`` moved into its frame
-    `records` (``sfm.stats`` or metrics.jsonl's records: each frame's
-    record takes the frame's counters and resets the tracer). Turns the
-    tracer off."""
+    since :func:`tracer_start`, from the tracer's ``k1.*`` counters (the
+    frame records of ``IncrementalSfM`` are read from the tracer, which
+    keeps them too). Turns the tracer off."""
     from sfm_mvs_tpu_torch.utils import profiling
 
     totals = profiling.summary(profiling.export())["counters"]
-    for rec in records:
-        for name, v in rec.get("counters", {}).items():
-            totals[name] = totals.get(name, 0) + v
     profiling.disable()
     profiling.reset()
     return tuple(int(totals.get(f"k1.{k}", 0)) for k in ("launches", "batch_launches",
@@ -732,7 +728,7 @@ def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
     state = sfm.finalize()
     torch.cuda.synchronize()
     fin_s = time.perf_counter() - t0
-    launches = k1_counts(sfm.stats)[0]
+    launches = k1_counts()[0]
 
     info = sfm.finalize_info
     errs = [s["reproj_error"] for s in sfm.stats]
@@ -779,7 +775,7 @@ def phase_main(imgs, Rt_gt, cfg):
     state = sfm.run(imgs)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = k1_counts(sfm.stats)[0]
+    launches = k1_counts()[0]
 
     n_cams, ate, rot = _pose_quality(state, Rt_gt)
     errs = [s["reproj_error"] for s in sfm.stats]
@@ -969,20 +965,22 @@ def phase_cli(Rt_gt):
     os.remove(f"{out}/dense.ply")  # ~150 MB of ASCII; the copy back holds 64 MiB
     with open(f"{out}/metrics.jsonl") as fh:
         records = [json.loads(line) for line in fh]
-    launches = k1_counts(records)[0]
+    launches = k1_counts()[0]
     events = sorted({r["event"] for r in records})
-    pair = next(r["pair"] for r in records if r["event"] == "bootstrap_auto")
+    boot = next(r for r in records if r["event"] == "bootstrap_auto")
+    pair, tries = boot["pair"], 1 + boot["retries"]  # the guard's retries match again
     map_points = next(r["points"] for r in records if r["event"] == "finalize")
     window = SfmConfig().view_graph_window
     graph_pairs = sum(min(window, n - 1 - i) for i in range(n))
     swept = sum(n - s for s in SweepConfig().pair_strides)
-    expected = graph_pairs + 1 + (n - 2) + swept
+    expected = graph_pairs + tries + (n - 2) + swept
     log(f"[cli] rc {rc}; bootstrap pair {tuple(pair)}; pose.csv {n_vals} values "
         f"({n_poses} poses) ATE {ate:.6f}; map points after finalize {map_points}, "
         f"sparse.ply {len(sparse)} vertices; dense.ply {len(dense)} vertices; metrics "
         f"events {events}")
     log(f"[cli] K1 launches {launches} (expected {expected} = {graph_pairs} view-graph "
-        f"pairs (window {window}) + 1 bootstrap + {n - 2} registrations + {swept} swept pairs)")
+        f"pairs (window {window}) + {tries} bootstrap tries + {n - 2} registrations + "
+        f"{swept} swept pairs)")
     log("[cli] stage wall (synchronized host clock): "
         + ", ".join(f"{k} {clock.total(k):.2f} s" for k in
                     ("image load", "run", "finalize", "MVS pass 1", "MVS pass 2", "PLY writes"))
@@ -1023,8 +1021,7 @@ def phase_resume():
     run_a_s = time.perf_counter() - t0
     with open(f"{out}/pose.csv", "rb") as fh:
         pose_a = fh.read()
-    with open(f"{out}/metrics.jsonl") as fh:  # run B rewrites it
-        launches = k1_counts([json.loads(line) for line in fh])[0]
+    launches = k1_counts()[0]
     latest = checkpoint.latest_checkpoint(f"{out}/checkpoints")
     tracer_start()
     t0 = time.perf_counter()
@@ -1032,8 +1029,7 @@ def phase_resume():
     run_b_s = time.perf_counter() - t0
     with open(f"{out}/pose.csv", "rb") as fh:
         pose_b = fh.read()
-    with open(f"{out}/metrics.jsonl") as fh:
-        launches += k1_counts([json.loads(line) for line in fh])[0]
+    launches += k1_counts()[0]
     expected = (n - 1) + (n - 1 - 40)
     log(f"[resume] run A rc {rc_a} in {run_a_s:.1f} s; run B (--resume from {latest}) "
         f"rc {rc_b} in {run_b_s:.1f} s; pose.csv {len(pose_a)} bytes, equal: "
@@ -1102,7 +1098,7 @@ def phase_loop_cli(Rt_gt):
     n_vals, n_poses, ate = _pose_csv_quality(f"{out}/pose.csv", Rt_gt)
     with open(f"{out}/metrics.jsonl") as fh:
         records = [json.loads(line) for line in fh]
-    launches = k1_counts(records)[0]
+    launches = k1_counts()[0]
     fin = next(r for r in records if r["event"] == "finalize")
     errs = [r["reproj_error"] for r in records if r["event"] == "frame"]
     loop_pairs = pairs.values[0] if pairs.values else []
@@ -1153,7 +1149,7 @@ def phase_intrinsics(cfg, renders):
     state = sfm.run(imgs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = k1_counts(sfm.stats)[0]
+    launches = k1_counts()[0]
     n_cams, ate0, _ = _pose_quality(state, Rt_gt)
     t0 = time.perf_counter()
     st_shared, stats, intr = ba.bundle_adjust_map_intrinsics(state, max_iterations=40, cg_iters=30)
@@ -1380,7 +1376,7 @@ def phase_stitch(renders):
     state = sfm.run(imgs)
     torch.cuda.synchronize()
     reg_s = time.perf_counter() - t0
-    reg_launches = k1_counts(sfm.stats)[0]
+    reg_launches = k1_counts()[0]
     reg_map = state
     n_cams, ate_reg, _ = _pose_quality(state, Rt_gt)
     if n_cams != F:

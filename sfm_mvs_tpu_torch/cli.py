@@ -177,14 +177,14 @@ def main(argv=None) -> int:
     was_on = profiling.enabled()
     profiling.enable()  # microseconds a span: metrics.jsonl carries them
     try:
-        return _main(argv)
+        return _main(argv, keep_trace=was_on)  # a tracer of its own: only the records read it
     finally:
         if not was_on:
             profiling.disable()
             profiling.reset()
 
 
-def _main(argv) -> int:
+def _main(argv, keep_trace: bool) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     dev = _device(args.device)
@@ -215,7 +215,7 @@ def _main(argv) -> int:
     ckpt_dir = os.path.join(args.out, "checkpoints")
     sfm = IncrementalSfM(cfg, device=dev, metrics=logger,
                          checkpoint_dir=ckpt_dir if args.checkpoint_every else None,
-                         checkpoint_every=args.checkpoint_every)
+                         checkpoint_every=args.checkpoint_every, keep_trace=keep_trace)
 
     resume_state, resume_frame = None, 0
     if args.resume:

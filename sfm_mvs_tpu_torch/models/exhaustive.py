@@ -18,7 +18,16 @@ matches these pairs with its plain XLA matcher; here they go through the
 version for CPU tensors), a stack of pairs in one batched launch, or the
 plain matcher with ``use_pallas_matcher=False``. Batched scatters write
 only the accepted entries, made distinct first, where the JAX package drops
-the rest into an out-of-range row.
+the rest into an out-of-range row. The pair rankings sort stably: of pairs
+with equal inlier counts the lower pair index comes first (the JAX package
+leaves ties to numpy's default sort).
+
+Traced (``utils/profiling.py``) as the span ``viewgraph`` around
+:func:`build_view_graph` (counters ``viewgraph.pairs`` and
+``viewgraph.useful_pairs``, the pairs with at least
+:data:`LOOP_MIN_INLIERS` E-inliers), with ``viewgraph.match`` (K1 inside
+it), ``viewgraph.essential`` and ``viewgraph.pose`` per pair and
+``viewgraph.copy`` around each batch's transfer to the host.
 """
 
 from __future__ import annotations
@@ -34,7 +43,12 @@ from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift
 from sfm_mvs_tpu_torch.ops.epipolar import recover_pose
 from sfm_mvs_tpu_torch.ops.matching_cuda import knn_match_cuda, knn_match_cuda_batch
 from sfm_mvs_tpu_torch.ops.sift import Features
+from sfm_mvs_tpu_torch.utils import profiling
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
+
+# The inlier floor of a loop-closure candidate (strongest_loop_pairs), and of
+# a pair that the view graph's counter ``viewgraph.useful_pairs`` counts.
+LOOP_MIN_INLIERS = 30
 
 
 class ViewGraph(NamedTuple):
@@ -63,25 +77,28 @@ def _pair_geometry(gen, f0: Features, f1: Features, K, cfg: SfmConfig):
     """Match + E-RANSAC + pose + parallax for one pair. Returns
     (num_matches, num_inliers, R, t, parallax_deg) as device tensors."""
     rc = cfg.ransac
-    m = _match(f0, f1, cfg)
-    n0 = projection.normalize_points(f0.xy[m.idx0.long()], K)
-    n1 = projection.normalize_points(f1.xy[m.idx1.long()], K)
-    res = ransac.ransac_essential(gen, n0, n1, m.valid, 0.5 * (K[0, 0] + K[1, 1]),
-                                  threshold_px=rc.essential_threshold_px,
-                                  iters=rc.essential_iters)
-    R, t, _ = recover_pose(res.model, n0, n1, res.inliers)
+    with profiling.span("viewgraph.match"):
+        m = _match(f0, f1, cfg)
+    with profiling.span("viewgraph.essential"):
+        n0 = projection.normalize_points(f0.xy[m.idx0.long()], K)
+        n1 = projection.normalize_points(f1.xy[m.idx1.long()], K)
+        res = ransac.ransac_essential(gen, n0, n1, m.valid, 0.5 * (K[0, 0] + K[1, 1]),
+                                      threshold_px=rc.essential_threshold_px,
+                                      iters=rc.essential_iters)
+    with profiling.span("viewgraph.pose"):
+        R, t, _ = recover_pose(res.model, n0, n1, res.inliers)
 
-    # Parallax: mean angle between the rotation-compensated ray from view 0
-    # and the matching ray in view 1, over inliers. A zero-baseline pair
-    # (the degenerate-bootstrap trap) scores many E-inliers but ~0 here.
-    def rays(n):
-        h = torch.cat([n, torch.ones_like(n[:, :1])], dim=1)
-        return h / torch.linalg.norm(h, dim=1, keepdim=True)
+        # Parallax: mean angle between the rotation-compensated ray from view 0
+        # and the matching ray in view 1, over inliers. A zero-baseline pair
+        # (the degenerate-bootstrap trap) scores many E-inliers but ~0 here.
+        def rays(n):
+            h = torch.cat([n, torch.ones_like(n[:, :1])], dim=1)
+            return h / torch.linalg.norm(h, dim=1, keepdim=True)
 
-    cosang = torch.clamp((rays(n0) @ R.T * rays(n1)).sum(1), -1.0, 1.0)
-    ang = torch.rad2deg(torch.arccos(cosang))
-    wsum = torch.clamp_min(res.inliers.sum(), 1)
-    parallax = torch.where(res.inliers, ang, torch.zeros_like(ang)).sum() / wsum
+        cosang = torch.clamp((rays(n0) @ R.T * rays(n1)).sum(1), -1.0, 1.0)
+        ang = torch.rad2deg(torch.arccos(cosang))
+        wsum = torch.clamp_min(res.inliers.sum(), 1)
+        parallax = torch.where(res.inliers, ang, torch.zeros_like(ang)).sum() / wsum
     return m.valid.sum(), res.num_inliers, R, t, parallax
 
 
@@ -108,10 +125,16 @@ def build_view_graph(images_gray: Sequence[np.ndarray], cfg: Optional[SfmConfig]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     out = []
-    for s in range(0, len(pairs), batch_size):
-        batch = [_pair_geometry(gen, feats[i], feats[j], K, cfg)
-                 for i, j in pairs[s:s + batch_size]]
-        out.append([torch.stack(list(col)).cpu().numpy() for col in zip(*batch)])
+    with profiling.span("viewgraph"):
+        profiling.count("viewgraph.pairs", len(pairs))
+        for s in range(0, len(pairs), batch_size):
+            batch = [_pair_geometry(gen, feats[i], feats[j], K, cfg)
+                     for i, j in pairs[s:s + batch_size]]
+            with profiling.span("viewgraph.copy"):
+                out.append([torch.stack(list(col)).cpu().numpy() for col in zip(*batch)])
+            if profiling.enabled():  # on the host, after the copy: no device op, no sync
+                profiling.count("viewgraph.useful_pairs",
+                                int((out[-1][1] >= LOOP_MIN_INLIERS).sum()))
     nm, ni, R, t, px = (np.concatenate(col) for col in zip(*out))
     adjacency = np.zeros((F, F), dtype=np.int32)
     for (i, j), n in zip(pairs, ni):
@@ -122,36 +145,81 @@ def build_view_graph(images_gray: Sequence[np.ndarray], cfg: Optional[SfmConfig]
         adjacency=adjacency, parallax_deg=px)
 
 
+def bootstrap_candidates(graph: ViewGraph, min_inliers: int = 50,
+                         min_parallax_deg: float = 1.0, max_gap: int = 0) -> list[tuple[int, int]]:
+    """Every pair fit to initialize from, best first.
+
+    First the pairs with enough inliers AND enough parallax, by inlier
+    count (ties: the lower pair index first); then those that pass only
+    with the parallax floor relaxed to a quarter, then to zero. max_gap > 0
+    restricts to pairs at most that many frames apart. Where no pair has
+    enough inliers, the strongest pair alone.
+    """
+    order = np.argsort(-graph.num_inliers, kind="stable")
+    gaps = np.abs(graph.pair_j - graph.pair_i)
+    out, seen = [], set()
+    for required_px in (min_parallax_deg, 0.25 * min_parallax_deg, 0.0):
+        for idx in order:
+            if idx in seen or (max_gap and gaps[idx] > max_gap):
+                continue
+            if (graph.num_inliers[idx] >= min_inliers
+                    and graph.parallax_deg[idx] >= required_px):
+                seen.add(idx)
+                out.append((int(graph.pair_i[idx]), int(graph.pair_j[idx])))
+    if not out:
+        idx = order[0]
+        out.append((int(graph.pair_i[idx]), int(graph.pair_j[idx])))
+    return out
+
+
 def best_bootstrap_pair(graph: ViewGraph, min_inliers: int = 50,
                         min_parallax_deg: float = 1.0, max_gap: int = 0) -> tuple[int, int]:
-    """Pick the strongest non-degenerate pair to initialize from.
+    """Pick the strongest non-degenerate pair to initialize from: the first
+    of :func:`bootstrap_candidates`.
 
     Among pairs with enough inliers AND enough parallax, the highest inlier
     count wins; the parallax floor relaxes to a quarter, then to zero, if
     no pair passes. max_gap > 0 restricts to pairs at most that many
     frames apart.
     """
-    order = np.argsort(-graph.num_inliers)
-    gaps = np.abs(graph.pair_j - graph.pair_i)
-    for required_px in (min_parallax_deg, 0.25 * min_parallax_deg, 0.0):
-        for idx in order:
-            if max_gap and gaps[idx] > max_gap:
-                continue
-            if (graph.num_inliers[idx] >= min_inliers
-                    and graph.parallax_deg[idx] >= required_px):
-                return int(graph.pair_i[idx]), int(graph.pair_j[idx])
-    idx = order[0]
-    return int(graph.pair_i[idx]), int(graph.pair_j[idx])
+    return bootstrap_candidates(graph, min_inliers, min_parallax_deg, max_gap)[0]
 
 
 def strongest_loop_pairs(graph: ViewGraph, top_k: int, min_gap: int = 3,
-                         min_inliers: int = 30) -> list[tuple[int, int]]:
+                         min_inliers: int = LOOP_MIN_INLIERS) -> list[tuple[int, int]]:
     """The top-K strong non-adjacent pairs: loop-closure candidates whose
-    re-observations tie distant cameras together before the final BA."""
+    re-observations tie distant cameras together before the final BA.
+    Pairs at least `min_gap` frames apart with at least `min_inliers`
+    inliers, by inlier count (ties: the lower pair index first)."""
     gaps = np.abs(graph.pair_j - graph.pair_i)
     cand = np.where((gaps >= min_gap) & (graph.num_inliers >= min_inliers))[0]
-    cand = cand[np.argsort(-graph.num_inliers[cand])][:top_k]
+    cand = cand[np.argsort(-graph.num_inliers[cand], kind="stable")][:top_k]
     return [(int(graph.pair_i[i]), int(graph.pair_j[i])) for i in cand]
+
+
+def pair_index(graph: ViewGraph, i: int, j: int) -> int:
+    """The index of pair (i, j), i < j, in the graph's pair arrays."""
+    hit = np.nonzero((graph.pair_i == i) & (graph.pair_j == j))[0]
+    if not hit.size:
+        raise KeyError(f"pair {(i, j)} is not in the view graph")
+    return int(hit[0])
+
+
+def pose_disagreement(pose0, pose1, R, t) -> tuple[float, float]:
+    """How far the relative pose of two world->camera poses (3, 4) lies
+    from a pair's (R, t) (unit t), in degrees, in float64 on the host:
+    (the angle of the rotation between the two relative rotations, the
+    angle between the two translation directions)."""
+    p0 = np.asarray(torch.as_tensor(pose0).detach().cpu(), np.float64)
+    p1 = np.asarray(torch.as_tensor(pose1).detach().cpu(), np.float64)
+    R_rel = p1[:, :3] @ p0[:, :3].T
+    t_rel = p1[:, 3] - R_rel @ p0[:, 3]
+    R = np.asarray(R, np.float64)
+    t = np.asarray(t, np.float64)
+    cos_r = np.clip((np.trace(R_rel @ R.T) - 1.0) / 2.0, -1.0, 1.0)
+    nt = np.linalg.norm(t_rel) * np.linalg.norm(t)
+    cos_t = np.clip(float(t_rel @ t) / nt, -1.0, 1.0) if nt > 0 else -1.0
+    return float(np.degrees(np.arccos(cos_r))), float(np.degrees(np.arccos(cos_t)))
 
 
 def _reobservation_candidates(state, cam_j, feats_i: Features, feats_j: Features,

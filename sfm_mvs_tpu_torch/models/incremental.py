@@ -262,16 +262,52 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def frame_generator(device, seed: int, frame: int) -> torch.Generator:
+def frame_generator(device, seed: int, frame: int, stream: int = 0) -> torch.Generator:
     """The random stream of one frame: a generator seeded from (seed, frame).
 
     Frame i draws the same numbers whether the run started at frame 0 or
     resumed from a checkpoint (the JAX driver re-splits its key for the
-    same effect).
+    same effect). stream > 0: a further stream of the frame, seeded from
+    (seed, frame, stream) (the auto bootstrap's retries).
     """
+    words = [seed, frame] + ([stream] if stream else [])
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence([seed, frame]).generate_state(1, np.uint64)[0]))
+    gen.manual_seed(int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]))
     return gen
+
+
+# The auto bootstrap's guard (IncrementalSfM._run_auto): the two-view
+# geometry init_from_bootstrap builds on the view graph's pair is held to the
+# graph's own estimate of that pair, made from an independent RANSAC stream.
+# At ~1 deg between frames an unlucky stream builds a wrong geometry (its
+# translation direction tens of degrees off) that bundle adjustment does not
+# always repair. Read on the card over 300 bootstraps of 10 scenes (PERF.md):
+# those within 10 deg of the true direction lie at most 12.0 deg from the
+# graph's, 0.97 deg in rotation; those more than 20 deg off lie at least
+# 15.0 deg from it, a known wrong geometry 18.4 deg or more. The rotation
+# does not tell them apart (both ~1 deg): its limit only catches a gross one.
+BOOTSTRAP_MAX_ROT_DEG = 2.0  # relative rotations
+BOOTSTRAP_MAX_DIR_DEG = 13.0  # translation directions
+BOOTSTRAP_STREAMS = 3  # generator streams tried on one pair: (seed, b), then (seed, b, k)
+BOOTSTRAP_PAIRS = 3  # pairs tried, in exhaustive.bootstrap_candidates' order
+
+
+class BootstrapAttempt(NamedTuple):
+    """One try of the auto bootstrap: pair (a, b), generator stream k, the
+    two-view pose of frame b it built, and its disagreement with the view
+    graph's pair in degrees."""
+
+    a: int
+    b: int
+    stream: int
+    pose1: torch.Tensor  # (3, 4) world->camera b, camera a at the identity
+    rot_deg: float
+    dir_deg: float
+
+    @property
+    def excess(self) -> float:
+        """The larger of the two angles, each over its limit: <= 1 passes."""
+        return max(self.rot_deg / BOOTSTRAP_MAX_ROT_DEG, self.dir_deg / BOOTSTRAP_MAX_DIR_DEG)
 
 
 class IncrementalSfM:
@@ -285,19 +321,24 @@ class IncrementalSfM:
     frames (global or windowed), a checkpoint every ``checkpoint_every``
     frames and resume from one, per-frame records to ``metrics`` (a
     ``utils.metrics.MetricsLogger``; with the tracer on, each record also
-    holds the frame's span self times and counters), and ``finalize`` (compact, loop
+    holds the frame's span self times and counters, and the tracer keeps
+    them too unless ``keep_trace`` is False, as for the CLI, which reads
+    the tracer only through the records), and ``finalize`` (compact, loop
     closure, cull + global BA with duplicate merging, the densification
     sweep, BA of the intrinsics).
     """
 
     def __init__(self, config: Optional[SfmConfig] = None, device="cuda", metrics=None,
-                 checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0):
+                 checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+                 keep_trace: bool = True):
         self.config = config or SfmConfig()
         self.device = resolve_device(device)
         self.metrics = metrics
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.stats: list[dict] = []
+        self.keep_trace = keep_trace
+        self._trace_mark = 0
 
     def _maybe_ba(self, pstate: PipelineState, frame: int) -> PipelineState:
         # As in the JAX package, BaConfig's damping fields are not passed on:
@@ -348,6 +389,7 @@ class IncrementalSfM:
         cfg = self.config
         dev = self.device
         K = torch.as_tensor(cfg.intrinsic_matrix(), device=dev)
+        self._trace_mark = profiling.mark()  # each frame's record starts here
         if images_bgr is None:
             images_bgr = [np.repeat((g * 255.0)[..., None], 3, axis=-1) for g in images_gray]
 
@@ -436,14 +478,11 @@ class IncrementalSfM:
         feats = [get_feats(i) for i in range(N)]
         graph = exhaustive.build_view_graph(images_gray, cfg, seed=seed, feats=feats,
                                             window=cfg.view_graph_window)
-        a, b = exhaustive.best_bootstrap_pair(graph)
-        if a > b:
-            a, b = b, a
+        (a, b), (pstate, st, track_a) = self._guarded_bootstrap(graph, feats, images_bgr, K,
+                                                                seed)
         if self.metrics is not None:
-            self.metrics.log(event="bootstrap_auto", pair=[a, b])
-        pstate, st, track_a = init_from_bootstrap(
-            frame_generator(dev, seed, b), feats[a], feats[b], self._bgr(images_bgr[b]), K, cfg,
-            return_track0=True)
+            self.metrics.log(event="bootstrap_auto", pair=[a, b],
+                             retries=len(self.bootstrap_attempts) - 1)
         self._record(b, st, 0.0)
         state = pstate.map
         tracks = {a: track_a, b: pstate.prev_track}
@@ -483,6 +522,45 @@ class IncrementalSfM:
         self.state = PipelineState(map=state, prev_feats=feats[last], prev_track=tracks[last])
         return state
 
+    def _guarded_bootstrap(self, graph, feats, images_bgr, K, seed):
+        """init_from_bootstrap on the view graph's best pair, held to the
+        graph's relative pose of that pair (``exhaustive.pose_disagreement``).
+
+        Where the rotation or the translation direction lies further than
+        BOOTSTRAP_MAX_ROT_DEG or BOOTSTRAP_MAX_DIR_DEG from the graph's, the
+        bootstrap is tried again: on up to BOOTSTRAP_STREAMS - 1 further
+        generator streams (seed, b, k), then on the next pair of
+        ``exhaustive.bootstrap_candidates``, up to BOOTSTRAP_PAIRS pairs. The
+        first try that passes is taken; where none does, the one whose larger
+        angle over its limit is least. Each try goes to
+        ``self.bootstrap_attempts``, each retry to the tracer's counter
+        ``bootstrap.retries``. Returns ((a, b), (PipelineState, FrameStats,
+        frame a's track vector)).
+        """
+        from sfm_mvs_tpu_torch.models import exhaustive
+
+        cfg, dev = self.config, self.device
+        self.bootstrap_attempts = []
+        best = None
+        for a, b in exhaustive.bootstrap_candidates(graph)[:BOOTSTRAP_PAIRS]:  # a < b
+            idx = exhaustive.pair_index(graph, a, b)
+            for k in range(BOOTSTRAP_STREAMS):
+                if self.bootstrap_attempts:
+                    profiling.count("bootstrap.retries")
+                out = init_from_bootstrap(
+                    frame_generator(dev, seed, b, k), feats[a], feats[b],
+                    self._bgr(images_bgr[b]), K, cfg, return_track0=True)
+                poses = out[0].map.poses
+                rot, dirn = exhaustive.pose_disagreement(poses[0], poses[1], graph.R[idx],
+                                                         graph.t[idx])
+                tried = BootstrapAttempt(a, b, k, poses[1], rot, dirn)
+                self.bootstrap_attempts.append(tried)
+                if tried.excess <= 1.0:
+                    return (a, b), out
+                if best is None or tried.excess < best[0]:
+                    best = (tried.excess, (a, b), out)
+        return best[1], best[2]
+
     def finalize(self, cull_px: float = 4.0, compact: bool = True,
                  ba_iterations: int = 0) -> MapState:
         """Final polish, in the JAX package's order: capacity right-sizing;
@@ -499,27 +577,37 @@ class IncrementalSfM:
         map is compacted and shrunk to the smallest power of two (from 1024)
         holding 1.25x its live points before the global solves; the stored
         track vectors are remapped.
+
+        Traced as the span ``finalize``, with ``finalize.compact`` and the
+        spans of ``_close_loops`` and ``refine.finalize_map`` inside.
         """
+        with profiling.span("finalize"):
+            return self._finalize(cull_px, compact, ba_iterations)
+
+    def _finalize(self, cull_px, compact, ba_iterations) -> MapState:
         if ba_iterations <= 0:
             ba_iterations = 20
         cfg = self.config
         state = self.state.map
         if compact:
-            state, remap = map_store.compact_points(state)
-            live = int(state.num_points)
-            cap = 1024
-            while cap < int(1.25 * live):
-                cap *= 2
-            state = map_store.shrink_map(state, cap)
-            P_new = state.points.shape[0]
+            with profiling.span("finalize.compact"):
+                state, remap = map_store.compact_points(state)
+                live = int(state.num_points)
+                cap = 1024
+                while cap < int(1.25 * live):
+                    cap *= 2
+                state = map_store.shrink_map(state, cap)
+                P_new = state.points.shape[0]
 
-            def _remap(t):
-                new = torch.where(t >= 0, remap[torch.clamp(t, 0, remap.shape[0] - 1).long()],
-                                  torch.full_like(t, -1))
-                return torch.where(new < P_new, new, torch.full_like(new, -1))
+                def _remap(t):
+                    new = torch.where(t >= 0,
+                                      remap[torch.clamp(t, 0, remap.shape[0] - 1).long()],
+                                      torch.full_like(t, -1))
+                    return torch.where(new < P_new, new, torch.full_like(new, -1))
 
-            self._cam_tracks = [_remap(t) for t in self._cam_tracks]
-            self.state = self.state._replace(map=state, prev_track=_remap(self.state.prev_track))
+                self._cam_tracks = [_remap(t) for t in self._cam_tracks]
+                self.state = self.state._replace(map=state,
+                                                 prev_track=_remap(self.state.prev_track))
 
         n_closed = 0
         if cfg.loop_close_pairs > 0 and len(self._cam_tracks) == int(state.num_cams):
@@ -589,21 +677,30 @@ class IncrementalSfM:
         drifted map the default map-agreement gate rejects exactly the
         matches that reveal the drift). The RANSAC draws come from a
         generator seeded with the camera count, so a resumed run replays
-        them. Returns (state, observations injected)."""
+        them. Returns (state, observations injected).
+
+        Traced as the span ``loop_close`` (counters ``loop_close.pairs`` and
+        ``loop_close.injected``), the graph's ``viewgraph`` and one
+        ``loop_close.inject`` per direction inside."""
         from sfm_mvs_tpu_torch.models import exhaustive
 
         cfg = self.config
-        graph = exhaustive.build_view_graph(self._cam_gray, cfg, feats=self._cam_feats)
-        pairs = exhaustive.strongest_loop_pairs(graph, cfg.loop_close_pairs)
-        gen = torch.Generator(device=state.points.device)
-        gen.manual_seed(int(state.num_cams))
-        n_closed = 0
-        for i, j in pairs:
-            for a, b in ((i, j), (j, i)):
-                state, n = exhaustive.inject_reobservations(
-                    state, a, b, self._cam_feats[a], self._cam_feats[b], self._cam_tracks[a],
-                    cfg, gen=gen, max_err_px=cfg.map.stitch_gate_px, epipolar_verify=True)
-                n_closed += int(n)
+        with profiling.span("loop_close"):
+            graph = exhaustive.build_view_graph(self._cam_gray, cfg, feats=self._cam_feats)
+            pairs = exhaustive.strongest_loop_pairs(graph, cfg.loop_close_pairs)
+            profiling.count("loop_close.pairs", len(pairs))
+            gen = torch.Generator(device=state.points.device)
+            gen.manual_seed(int(state.num_cams))
+            n_closed = 0
+            for i, j in pairs:
+                for a, b in ((i, j), (j, i)):
+                    with profiling.span("loop_close.inject"):
+                        state, n = exhaustive.inject_reobservations(
+                            state, a, b, self._cam_feats[a], self._cam_feats[b],
+                            self._cam_tracks[a], cfg, gen=gen,
+                            max_err_px=cfg.map.stitch_gate_px, epipolar_verify=True)
+                    profiling.count("loop_close.injected", n)
+                    n_closed += int(n)
         return state, n_closed
 
     def _bgr(self, image) -> torch.Tensor:
@@ -627,12 +724,18 @@ class IncrementalSfM:
         }
         if profiling.enabled():
             # The tracer's spans and counters since the last record (this
-            # frame's detection, registration and BA), then a fresh start.
-            traced = profiling.summary(profiling.export())
+            # frame's detection, registration and BA). The tracer's record
+            # stays whole for whoever turned it on, or is dropped here where
+            # nobody reads it but the records (and would otherwise be read
+            # whole again for every frame).
+            mark = self._trace_mark
+            traced = profiling.summary(profiling.export(), keep=lambda i: i >= mark)
             d["spans"] = {name: {"calls": v["calls"], "self_ms": v["self_ms"]}
                           for name, v in traced["spans"].items()}
             d["counters"] = traced["counters"]
-            profiling.reset()
+            if not self.keep_trace:
+                profiling.reset()
+            self._trace_mark = profiling.mark()
         self.stats.append(d)
         if self.metrics is not None:
             self.metrics.log(event="frame", **d)

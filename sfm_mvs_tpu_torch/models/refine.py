@@ -12,6 +12,7 @@ import torch
 from sfm_mvs_tpu_torch.models import ba as ba_mod
 from sfm_mvs_tpu_torch.models import map_store
 from sfm_mvs_tpu_torch.models.map_store import MapState
+from sfm_mvs_tpu_torch.utils import profiling
 
 
 def cull_map(state: MapState, max_error_px: float = 4.0, min_track: int = 2) -> MapState:
@@ -42,25 +43,33 @@ def finalize_map(state: MapState, max_iterations: int = 20, cull_px: float = 4.0
     point-id remap goes to ``info["point_remap"]`` (callers holding track
     ids re-point them at the survivors) and the count to
     ``info["merged_points"]``. Returns (MapState, info).
+
+    Traced in the spans ``finalize.robust`` (the robust BA),
+    ``finalize.merge`` (counter ``finalize.merged``) and ``finalize.cull``
+    (each round's cull and BA); BA keeps its own ``ba`` spans.
     """
     info = {}
     if robust_iterations > 0:
-        state, stats = ba_mod.bundle_adjust_map(
-            state, max_iterations=robust_iterations, cg_iters=cg_iters,
-            huber_delta=robust_huber_px)
-        info["robust_cost"] = float(stats.final_cost)
+        with profiling.span("finalize.robust"):
+            state, stats = ba_mod.bundle_adjust_map(
+                state, max_iterations=robust_iterations, cg_iters=cg_iters,
+                huber_delta=robust_huber_px)
+            info["robust_cost"] = float(stats.final_cost)
     if merge_eps_3d > 0.0:
-        n_total, remap_total = 0, None
-        for _ in range(2):
-            state, remap, n = map_store.merge_duplicate_points(state, merge_eps_3d, merge_px)
-            n_total += int(n)
-            remap_total = remap if remap_total is None else remap[remap_total.long()]
-        info["merged_points"] = n_total
-        info["point_remap"] = remap_total
+        with profiling.span("finalize.merge"):
+            n_total, remap_total = 0, None
+            for _ in range(2):
+                state, remap, n = map_store.merge_duplicate_points(state, merge_eps_3d, merge_px)
+                profiling.count("finalize.merged", n)
+                n_total += int(n)
+                remap_total = remap if remap_total is None else remap[remap_total.long()]
+            info["merged_points"] = n_total
+            info["point_remap"] = remap_total
     for r in range(rounds):
-        state = cull_map(state, max_error_px=cull_px)
-        state, stats = ba_mod.bundle_adjust_map(
-            state, max_iterations=max_iterations, cg_iters=cg_iters)
-        info[f"round{r}_cost"] = float(stats.final_cost)
+        with profiling.span("finalize.cull"):
+            state = cull_map(state, max_error_px=cull_px)
+            state, stats = ba_mod.bundle_adjust_map(
+                state, max_iterations=max_iterations, cg_iters=cg_iters)
+            info[f"round{r}_cost"] = float(stats.final_cost)
     info["points"] = int(state.point_valid.sum())
     return state, info

@@ -15,11 +15,15 @@ through the clock anchor of :func:`export`.
 
 A counter adds a value to the innermost open span (index -1 outside every
 span). The value is a Python number or a 0-d tensor; tensors are kept as
-they are and summed and moved to the host once, in :func:`export`, so
-counting adds no host synchronization.
+they are, and the next :func:`export` sums them and moves them to the host
+once (the sums then stay on the host), so counting adds no host
+synchronization.
 
-Spans and counters stay in memory until :func:`reset`. One thread at a
-time: the spans nest by the order they open and close in.
+Spans and counters stay in memory until :func:`reset`. A consumer that
+wants only what came after some point (a driver's per-frame record) takes
+a :func:`mark` and later reads ``summary(export(), keep=lambda i: i >=
+mark)``, which leaves the record whole for whoever turned the tracer on.
+One thread at a time: the spans nest by the order they open and close in.
 
     profiling.enable()
     with profiling.span("register"):
@@ -136,6 +140,11 @@ def _clock_anchor() -> tuple[int, int]:
     return best[1], best[2]
 
 
+def mark() -> int:
+    """Where the record stands: the index the next span will have."""
+    return len(_spans)
+
+
 def _summed_tensors() -> dict:
     """(span index, name) -> the sum of its tensor values, on the host:
     one stack and one copy per device and dtype."""
@@ -159,13 +168,15 @@ def export() -> dict:
     value}}. ``clock``: {"perf_ns", "unix_ns"}, the tracer's clock and
     ``time.time_ns()`` read together, which maps a span onto Unix time
     (and so onto a torch.profiler trace, whose events Kineto stamps on a
-    Unix-time base).
+    Unix-time base). The tensor counts go into the host sums here, so a
+    later export moves only the tensors counted after this one.
     """
+    for key, value in _summed_tensors().items():
+        _numbers[key] = _numbers.get(key, 0) + value
+    _tensors.clear()
     counters: dict = {}
-    summed = _summed_tensors()
-    for key in set(_numbers) | set(summed):
-        value = _numbers.get(key, 0) + summed.get(key, 0)
-        counters.setdefault(key[0], {})[key[1]] = value
+    for (idx, name), value in _numbers.items():
+        counters.setdefault(idx, {})[name] = value
     perf_ns, unix_ns = _clock_anchor()
     return {"spans": [list(r) for r in _spans], "counters": counters,
             "clock": {"perf_ns": perf_ns, "unix_ns": unix_ns}}

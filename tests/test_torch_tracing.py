@@ -8,7 +8,9 @@ onto torch.profiler's timeline: ``record_function`` ranges opened around
 the same statements land within 200 us of them (the median of 20). On a tiny scene,
 ``IncrementalSfM.run`` records the detection, bootstrap, registration and
 BA spans (``ba.lm_steps`` = ``max_iterations`` per BA call) into each
-frame's record, and ``densify_map`` records the MVS spans.
+frame's record and leaves the tracer's own record whole (each record is
+the ``summary`` of the spans from a ``mark`` on), and ``densify_map``
+records the MVS spans.
 """
 
 import contextlib
@@ -92,6 +94,24 @@ def test_tensor_counters_are_summed_at_export():
     assert out["counters"] == {0: {"k": 16, "f": 0.5}}
 
 
+def test_an_export_moves_each_tensor_to_the_host_once():
+    with tracer_on():
+        with profiling.span("s"):
+            profiling.count("k", torch.tensor(4))
+        first = profiling.export()
+        again = profiling.export()
+        mark = profiling.mark()
+        with profiling.span("s"):
+            t = torch.tensor(2)
+            profiling.count("k", t)
+        later = profiling.export()
+        t.add_(5)  # exported already: the record keeps the value it read
+        last = profiling.export()
+    assert first["counters"] == again["counters"] == {0: {"k": 4}}
+    assert mark == 1 and later["counters"] == last["counters"] == {0: {"k": 4}, 1: {"k": 2}}
+    assert profiling.summary(later, keep=lambda i: i >= mark)["counters"] == {"k": 2}
+
+
 def test_reset_with_a_span_open():
     with tracer_on():
         with profiling.span("open"):
@@ -148,7 +168,10 @@ def traced_run(tmp_path_factory):
 
 def test_incremental_run_records_each_layer(traced_run):
     _, sfm, state, path, left = traced_run
-    assert int(state.num_cams) == 4 and left["spans"] == []  # each record took its frame's
+    # Each record holds its frame's spans; the tracer's record stays whole.
+    assert int(state.num_cams) == 4
+    assert sum(v["calls"] for rec in sfm.stats for v in rec["spans"].values()) == len(
+        left["spans"])
     boot, frames = sfm.stats[0], sfm.stats[1:]
     assert boot["frame"] == 1 and len(frames) == 2
     assert {"detect", "detect.scale_space", "detect.keypoints", "detect.describe", "bootstrap",
@@ -172,6 +195,18 @@ def test_incremental_run_records_each_layer(traced_run):
         logged = [json.loads(line) for line in fh]
     assert [r["spans"] for r in logged if r["event"] == "frame"] == [
         r["spans"] for r in sfm.stats]
+
+
+def test_a_run_that_keeps_no_trace_leaves_it_in_the_records(traced_run):
+    imgs, sfm, _, _, _ = traced_run
+    own = IncrementalSfM(sfm.config, device="cpu", keep_trace=False)  # as the CLI's
+    with tracer_on():
+        own.run(imgs[:3])
+        left = profiling.export()
+    assert left["spans"] == [] and left["counters"] == {}
+    assert [r["counters"] for r in own.stats] == [r["counters"] for r in sfm.stats[:2]]
+    assert [{k: v["calls"] for k, v in r["spans"].items()} for r in own.stats] == [
+        {k: v["calls"] for k, v in r["spans"].items()} for r in sfm.stats[:2]]
 
 
 def test_densify_map_records_mvs_spans(traced_run):
