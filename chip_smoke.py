@@ -48,6 +48,22 @@ Phases, each printing one line (any failure exits non-zero):
    code's. Then each launch's time beside its taps at one load a lane a
    cycle, and pass 1 of the fountain chunk through the kernels and through
    the plain code (launch-amortized ms, launches, device ops).
+3c. bundle adjustment as a CUDA graph: ``run_ba`` on a CUDA problem
+   replays its LM loop as one captured graph per problem key. On synthetic
+   problems at fountain11's map capacity (11 cameras, 16384 points; 8 LM
+   iterations, 15 CG steps; also with the shared and the per-camera
+   intrinsics) and gustav57's (64, 16384; 8 iterations, 20 CG steps, and
+   finalize's robust BA: 30 iterations, Huber 3 px), the eager loop and
+   the graph path must return the same outputs and stats bit for bit
+   (else a relative final-cost difference of at most 1e-6). Four calls of
+   one key: the first (problem a) and the second (problem b) run the eager
+   loop, the third (b) captures and replays, the fourth (a) replays; they
+   must count 1 ``ba.graph_captures`` and 2 ``ba.graph_replays``, the
+   first and the fourth the same four BA step counters, and the fourth
+   must leave the third's returned tensors as they were. Prints ms a call
+   both ways (synchronized, median of 5), the first call's and the
+   capturing call's (warm-up, capture and replay), and the host's kernel
+   launches in one replayed call (torch.profiler).
 4. main path: ``IncrementalSfM(cfg, device="cuda").run(images)`` on the
    57-frame 968x648 staircase scene at bench.py's frontend settings, BA off;
    checks registration, ATE and reprojection error against ground truth,
@@ -58,8 +74,11 @@ Phases, each printing one line (any failure exits non-zero):
    the densification sweep (``redetect_for_sweep`` + ``finalize_with_sweep``
    grown to 65,536 points, strides 1 and 2); checks 57/57 cameras, ATE below
    0.05 and below phase 4's, sub-pixel reprojection and BA rms, at least
-   15,000 finite points at sub-pixel rms after the sweep, and 167 K1
-   launches (1 bootstrap + 55 frames + 56 + 55 swept pairs).
+   15,000 finite points at sub-pixel rms after the sweep, 167 K1
+   launches (1 bootstrap + 55 frames + 56 + 55 swept pairs), and BA
+   graph replays on every frame but the per-frame key's first two, with
+   at most one capture (the tracer's ``ba.graph_replays``,
+   ``ba.graph_captures``).
 6. driver with BA: ``IncrementalSfM(cfg, device="cuda")`` on the same
    frames with ``BaConfig(enabled=True, max_iterations=8)``, then
    ``finalize()`` with the same sweep (compaction, shrink, track remap,
@@ -149,6 +168,8 @@ stage breakdown with torch.profiler over one warm ``klt_step`` (tables in
 chiprun_out/profile.txt).
 
     python3 chip_smoke.py --mvs  # phases 1, 2 and 3b only (~2 min)
+
+    python3 chip_smoke.py --ba-graph  # phases 1 and 3c only (~2 min)
 
     python3 chip_smoke.py --microbench  # only the card's limits behind K1
 
@@ -637,6 +658,7 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
     """bench.py's path on the card: per-frame BA, then the sweep. Returns
     K1's launches and the map before the sweep."""
     from sfm_mvs_tpu_torch.models import map_store
+    from sfm_mvs_tpu_torch.utils import profiling
 
     stack8 = stage_u8(imgs)
     torch.cuda.reset_peak_memory_stats()
@@ -644,6 +666,9 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
     t0 = time.perf_counter()
     pstate, records = bench_frames(stack8, cfg)
     loop_s = time.perf_counter() - t0
+    counters = profiling.summary(profiling.export())["counters"]
+    graph_calls = (int(counters.get("ba.graph_captures", 0)),
+                   int(counters.get("ba.graph_replays", 0)))
     state = pstate.map
     n_cams, ate, rot = _pose_quality(state, Rt_gt)
     pts_before = int(state.point_valid.sum())
@@ -682,7 +707,8 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
         f"synchronized host clock), {1.0 / wall:.3f} frames/s; loop total {loop_s:.1f} s")
     log(f"[bench] BA {ba_ms:.2f} ms/frame (CUDA events, median of {len(warm)}); "
         f"sweep {sweep_s:.2f} s; peak device memory {peak_gb:.2f} GiB")
-    log(f"[bench] K1 launches {launches} (expected {expected})")
+    log(f"[bench] K1 launches {launches} (expected {expected}); BA graph captures, replays "
+        f"{graph_calls} (expected at most 1, at least {len(imgs) - 4})")
     with open("chiprun_out/chip_smoke_bench.json", "w") as fh:
         json.dump({"frames": records, "sweep": info, "sweep_s": sweep_s}, fh)
     if n_cams != len(imgs):
@@ -701,6 +727,9 @@ def phase_bench(imgs, Rt_gt, cfg, ate_ba_off):
         raise AssertionError(f"{len(pts)} points after the sweep, expected >= 15000")
     if launches != expected:
         raise AssertionError(f"K1 launched {launches} times, expected {expected}")
+    if graph_calls[0] > 1 or not len(imgs) - 4 <= graph_calls[1] <= len(imgs) - 2:
+        raise AssertionError(f"per-frame BA: graph captures, replays {graph_calls}, expected at "
+                             f"most 1 and a replay a frame but the key's first two")
     return launches, before_sweep
 
 
@@ -762,6 +791,140 @@ def phase_driver(imgs, Rt_gt, cfg, ate_ba_off):
     if launches != expected:
         raise AssertionError(f"K1 launched {launches} times, expected {expected}")
     return launches
+
+
+def ba_graph_problem(C, P, n_cams, n_points, seed, width=6):
+    """A BAProblem at map capacity (C, P) on the card: `n_cams` cameras
+    8 units from the origin on a 40 deg arc around it, `n_points` points in
+    a 4-unit box there, each seen by 2-8 consecutive cameras with 0.3 px
+    noise; points perturbed by 0.05, cameras 1.. by 0.01 rad and 0.03
+    (camera 0 frozen). Made on the host from `seed`; `width` 9 adds
+    per-camera intrinsics [ds, k1, k2] at zero."""
+    from sfm_mvs_tpu_torch.models import ba
+
+    g = torch.Generator().manual_seed(seed)
+    K = torch.tensor([[1196.98, 0.0, 466.19], [0.0, 1199.06, 314.13], [0.0, 0.0, 1.0]])
+    angles = torch.zeros(C)
+    angles[:n_cams] = torch.deg2rad(torch.linspace(-20.0, 20.0, n_cams))
+    cams = torch.zeros(C, width)
+    cams[:, 1], cams[:, 5] = angles, 8.0
+    pts = (torch.rand(P, 3, generator=g) - 0.5) * 4.0
+    intr = torch.tensor([1.0, 0.0, 0.0])
+    uv = ba._res_grid(cams, pts, torch.zeros(P, C, 2), K, intr)
+    uv = uv + 0.3 * torch.randn(P, C, 2, generator=g)
+    first = torch.randint(0, n_cams - 1, (P,), generator=g)
+    span = torch.randint(2, 9, (P,), generator=g)
+    c = torch.arange(C)
+    mask = (c >= first[:, None]) & (c < first[:, None] + span[:, None]) & (c < n_cams)
+    cams_n = cams.clone()
+    cams_n[1:, :3] += 0.01 * torch.randn(C - 1, 3, generator=g)
+    cams_n[1:, 3:6] += 0.03 * torch.randn(C - 1, 3, generator=g)
+    prob = ba.BAProblem(
+        cam_params=cams_n, points=pts + 0.05 * torch.randn(P, 3, generator=g),
+        cam_valid=c < n_cams, point_valid=torch.arange(P) < n_points, obs_uv=uv,
+        obs_mask=mask, K=K, frozen=c < 1, intr=intr)
+    return ba.BAProblem(*(t.to(DEVICE) for t in prob))
+
+
+def _ba_outputs_equal(a, b) -> bool:
+    (pa, sa), (pb, sb) = a, b
+    return all(torch.equal(x, y) for x, y in zip(
+        (pa.cam_params, pa.points, pa.intr, *sa), (pb.cam_params, pb.points, pb.intr, *sb)))
+
+
+def _ba_sync_ms(fn, calls=5) -> float:
+    """Median synchronized host ms of `calls` calls of fn()."""
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def phase_ba_graph() -> None:
+    """Phase 3c: the graph path of ``ba.run_ba`` against the eager loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sfm_mvs_tpu_torch.models import ba
+    from sfm_mvs_tpu_torch.utils import profiling
+
+    def traced(fn):
+        profiling.reset()
+        profiling.enable()
+        try:
+            out = fn()
+            return out, profiling.summary(profiling.export())["counters"]
+        finally:
+            profiling.disable()
+            profiling.reset()
+
+    steps = ("ba.lm_steps", "ba.active", "ba.accepted", "ba.cg_steps")
+    cases = [
+        ("fountain11", (11, 16384, 11, 12000), {}, dict(max_iterations=8, cg_iters=15)),
+        ("fountain11-intrinsics", (11, 16384, 11, 12000), {},
+         dict(max_iterations=8, cg_iters=15, refine_intrinsics=True)),
+        ("fountain11-percam", (11, 16384, 11, 12000), dict(width=9),
+         dict(max_iterations=8, cg_iters=15)),
+        ("gustav57", (64, 16384, 57, 14000), {}, dict(max_iterations=8, cg_iters=20)),
+        ("gustav57-huber", (64, 16384, 57, 14000), {},
+         dict(max_iterations=30, cg_iters=20, huber_delta=3.0)),
+    ]
+    ba._graphs.clear()
+    for seed, (name, shape, pkw, kw) in enumerate(cases):
+        a = ba_graph_problem(*shape, seed=2 * seed, **pkw)
+        b = ba_graph_problem(*shape, seed=2 * seed + 1, **pkw)
+        statics = (kw["max_iterations"], kw["cg_iters"], 1e-3, 4.0, 2.0,
+                   kw.get("huber_delta", 0.0), kw.get("refine_intrinsics", False))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eager_a, counts_e = traced(lambda: ba.run_ba(a, **kw))  # the key's first call: eager
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        eager_b, counts_eb = traced(lambda: ba.run_ba(b, **kw))  # the second: eager
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        graph_b, counts_b = traced(lambda: ba.run_ba(b, **kw))  # the third: capture, replay
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t) * 1e3
+        kept = [t.clone() for t in (graph_b[0].cam_params, graph_b[0].points, graph_b[0].intr,
+                                    *graph_b[1])]
+        graph_a, counts_a = traced(lambda: ba.run_ba(a, **kw))  # the fourth: replay
+        bitwise = _ba_outputs_equal(eager_a, graph_a) and _ba_outputs_equal(eager_b, graph_b)
+        cost_gap = max(abs(float(g[1].final_cost) / float(e[1].final_cost) - 1.0)
+                       for e, g in ((eager_a, graph_a), (eager_b, graph_b)))
+        if not bitwise and cost_gap > 1e-6:
+            raise AssertionError(f"[ba-graph] {name}: graph path differs from the eager loop, "
+                                 f"final cost rel {cost_gap:.3g}")
+        if [counts_e[k] for k in steps] != [counts_a[k] for k in steps]:
+            raise AssertionError(f"[ba-graph] {name}: step counters {counts_e} (eager) "
+                                 f"against {counts_a} (graph)")
+        after = (graph_b[0].cam_params, graph_b[0].points, graph_b[0].intr, *graph_b[1])
+        if not all(torch.equal(x, y) for x, y in zip(kept, after)):
+            raise AssertionError(f"[ba-graph] {name}: a later replay changed an earlier "
+                                 "call's returned tensors")
+        calls = tuple(sum(c.get(k, 0) for c in (counts_e, counts_eb, counts_b, counts_a))
+                      for k in ("ba.graph_captures", "ba.graph_replays"))
+        if calls != (1, 2):
+            raise AssertionError(f"[ba-graph] {name}: captures, replays {calls}, not (1, 2)")
+        eager_ms = _ba_sync_ms(lambda: ba._lm_loop(a, *statics, None), calls=3)
+        graph_ms = _ba_sync_ms(lambda: ba.run_ba(a, **kw))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ba.run_ba(a, **kw)
+            torch.cuda.synchronize()
+        launches = sum(1 for e in prof.events()
+                       if e.name.startswith("cu") and "LaunchKernel" in e.name)
+        graph_launches = sum(1 for e in prof.events() if e.name.startswith("cudaGraphLaunch"))
+        log(f"[ba-graph] {name} (C={shape[0]}, P={shape[1]}, {kw}): bitwise "
+            f"{bitwise} (final cost rel {cost_gap:.3g}), stats "
+            f"{[round(float(v), 6) for v in graph_a[1]]}, counters "
+            f"{ {k: int(counts_a[k]) for k in steps} }, captures/replays {calls}; eager "
+            f"{eager_ms:.2f} ms, graph {graph_ms:.2f} ms a call, first call (eager) "
+            f"{first_ms:.1f} ms, third (capture) {capture_ms:.1f} ms; one replayed call: "
+            f"{launches} kernel launches, {graph_launches} graph launch")
 
 
 def phase_main(imgs, Rt_gt, cfg):
@@ -1934,7 +2097,6 @@ def phase_profile(imgs, cfg, n_frames=10):
         (map_store, "append_observations", "append_observations (4 per frame)"),
         (incremental, "register_frame", "register_frame"),
         (ba, "bundle_adjust_map", "ba.bundle_adjust_map (8 LM iterations)"),
-        (ba, "_lm_solve", "ba._lm_solve (one LM iteration's solve)"),
         (densify, "sweep_pair", "densify.sweep_pair"),
         (refine, "cull_map", "refine.cull_map"),
     ]) as clock:
@@ -2429,6 +2591,9 @@ def main(argv) -> int:
     if "--microbench" in argv:
         microbench()
         return 0
+    if "--ba-graph" in argv:
+        phase_ba_graph()
+        return 0
     build_s, registers, spills, mvs_regs = phase_build()
     if "--mvs" in argv:
         from sfm_mvs_tpu_torch.utils.synthetic import render_staircase_sequence
@@ -2453,6 +2618,7 @@ def run_phases(argv, smi, t_start, build_s, registers, spills, mvs_regs, renders
     k1 = phase_k1(sift_pair(imgs, cfg))
     k1_batch = phase_k1_batch(sift_pairs(imgs, cfg, 8), cfg.frontend.lowe_ratio)
     mvs_kernel = phase_mvs_kernel(mvs_regs, _stair_chunk(imgs, Rt_gt, K, gt_depths))
+    phase_ba_graph()
     launches, ate_ba_off = phase_main(imgs, Rt_gt, cfg)
     n, bench_map = phase_bench(imgs, Rt_gt, cfg, ate_ba_off)
     launches += n

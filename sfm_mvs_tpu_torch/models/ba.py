@@ -41,17 +41,29 @@ point back-substitution) stay local, and the accept test reads the reduced
 cost, so every rank takes the same LM branch. With ``group=None`` nothing
 is reduced and no arithmetic changes.
 
+On the card (a CUDA problem, no group) the loop is launch-bound: ~800
+small kernels an LM iteration. There ``run_ba`` replays the whole loop as
+one CUDA graph per problem key (device, field shapes, static arguments,
+float32 matmul precision). A key's first two calls run eagerly, its
+third captures, so a key used once or twice costs no capture. A replay's
+outputs are cloned, so no returned tensor aliases the graph's memory. The
+eager loop is the same code and runs everywhere else (the CPU, the
+sharded BA).
+
 Tracing: each entry point (``bundle_adjust_map``, ``bundle_adjust_window``
-and the intrinsics variants) is the span ``ba``; each LM iteration is a
-``ba.lm`` span, which counts ``ba.lm_steps`` (iterations run),
-``ba.active`` (steps under the damping cap) and ``ba.accepted`` (steps
-that lowered the cost), and holds the ``ba.cg`` span around the CG loop
-(``ba.cg_steps``). The step counters are the tensors the loop computes
-anyway: no extra device op.
+and the intrinsics variants) is the span ``ba``. ``run_ba`` counts from
+the stats it returns: ``ba.lm_steps`` (iterations run), ``ba.active``
+(steps under the damping cap), ``ba.accepted`` (steps that lowered the
+cost) and ``ba.cg_steps``; the stats are tensors the loop computes anyway,
+so no extra device op. The eager loop records each LM iteration as a
+``ba.lm`` span holding the ``ba.cg`` span around the CG loop; a replay
+records neither, and counts ``ba.graph_replays`` (one a replay) and
+``ba.graph_captures`` (one a capture).
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -417,7 +429,6 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
     p = z
     zero = torch.zeros((), dtype=g_c.dtype, device=g_c.device)
     with profiling.span("ba.cg"):
-        profiling.count("ba.cg_steps", cg_iters)
         for _ in range(cg_iters):
             Sp = S_apply(p)
             denom = dot(p, Sp)
@@ -445,22 +456,10 @@ def _lm_solve(prob: BAProblem, lam: torch.Tensor, cg_iters: int,
 # ---------------------------------------------------------------------------
 
 
-def run_ba(prob: BAProblem, max_iterations: int = 20, cg_iters: int = 20,
-           damping_init: float = 1e-3, damping_up: float = 4.0,
-           damping_down: float = 2.0, huber_delta: float = 0.0,
-           refine_intrinsics: bool = False, group=None):
-    """Levenberg-Marquardt with accept/reject and multiplicative damping.
-
-    Runs `max_iterations` steps without a host sync. A step is active while
-    the damping is below 1e5 (where the JAX ``while_loop`` would still be
-    running); only active steps update the problem, the damping and the
-    counters. refine_intrinsics: also optimize the shared [s, k1, k2]
-    block ``prob.intr``. group: `prob` is this rank's point block of a
-    problem sharded over the group (``parallel/distributed_ba.py``).
-    Returns (BAProblem, BAStats).
-    """
-    if group is not None:
-        group = meshlib.as_mesh(group)
+def _lm_loop(prob: BAProblem, max_iterations: int, cg_iters: int, damping_init: float,
+             damping_up: float, damping_down: float, huber_delta: float,
+             refine_intrinsics: bool, group):
+    """:func:`run_ba`'s loop, run eagerly or captured into a CUDA graph."""
     cost = _cost(prob, huber_delta, group)
     cost0 = cost
     lam = torch.full((), damping_init, dtype=prob.points.dtype, device=prob.points.device)
@@ -482,14 +481,139 @@ def run_ba(prob: BAProblem, max_iterations: int = 20, cg_iters: int = 20,
             stepped = torch.where(improve, lam / damping_down, lam * damping_up)
             lam = torch.where(active, torch.clamp(stepped, 1e-9, 1e6), lam)
             cost = torch.where(take, new_cost, cost)
-            step, took = active.to(torch.int32), take.to(torch.int32)
-            it = it + step
-            accepted = accepted + took
-            profiling.count("ba.lm_steps")
-            profiling.count("ba.active", step)
-            profiling.count("ba.accepted", took)
+            it = it + active.to(torch.int32)
+            accepted = accepted + take.to(torch.int32)
     return prob, BAStats(initial_cost=cost0, final_cost=cost, iterations=it,
                          accepted=accepted)
+
+
+def run_ba(prob: BAProblem, max_iterations: int = 20, cg_iters: int = 20,
+           damping_init: float = 1e-3, damping_up: float = 4.0,
+           damping_down: float = 2.0, huber_delta: float = 0.0,
+           refine_intrinsics: bool = False, group=None):
+    """Levenberg-Marquardt with accept/reject and multiplicative damping.
+
+    Runs `max_iterations` steps without a host sync. A step is active while
+    the damping is below 1e5 (where the JAX ``while_loop`` would still be
+    running); only active steps update the problem, the damping and the
+    counters. refine_intrinsics: also optimize the shared [s, k1, k2]
+    block ``prob.intr``. group: `prob` is this rank's point block of a
+    problem sharded over the group (``parallel/distributed_ba.py``).
+
+    A problem on a CUDA device without a group replays the loop as one
+    CUDA graph from its key's third call on (:func:`_on_card`); every other
+    call runs it eagerly. Either way the step counters are counted here,
+    from the returned stats. Returns (BAProblem, BAStats).
+    """
+    statics = (max_iterations, cg_iters, damping_init, damping_up, damping_down,
+               huber_delta, refine_intrinsics)
+    if group is None and prob.points.is_cuda:
+        prob, stats = _on_card(prob, statics)
+    else:
+        prob, stats = _lm_loop(prob, *statics, None if group is None else meshlib.as_mesh(group))
+    profiling.count("ba.lm_steps", max_iterations)
+    profiling.count("ba.active", stats.iterations)
+    profiling.count("ba.accepted", stats.accepted)
+    profiling.count("ba.cg_steps", cg_iters * max_iterations)
+    return prob, stats
+
+
+# ---------------------------------------------------------------------------
+# The card path: the whole LM loop as one CUDA graph a problem key
+# ---------------------------------------------------------------------------
+
+# Problem keys remembered, least recently used dropped first: a key's graph,
+# or how often it ran eagerly. A pipeline uses a few: one per-frame BA, and
+# finalize's robust and cull BAs at each compacted capacity.
+_GRAPHS_KEPT = 8
+
+# A key's calls that run eagerly before its graph is captured. A capture
+# costs 2.3-2.9 eager calls on an H100 (an eager-speed pass over the loop,
+# the graph's instantiation, a replay) and a replay ~0.2, so capturing
+# after two eager calls keeps any key within about twice its cheaper cost
+# (rent, then buy), and a key used once or twice, as finalize's are in one
+# pass, costs no capture.
+_EAGER_CALLS = 2
+
+
+class _Graph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: BAProblem  # static buffers: each call copies its problem in
+    outputs: tuple  # (BAProblem, BAStats) that a replay overwrites
+
+
+_graphs: OrderedDict = OrderedDict()  # graph_key -> _Graph or eager calls, least recent first
+_pool = None  # the memory pool every graph allocates from
+
+
+def graph_key(prob: BAProblem, max_iterations: int, cg_iters: int, damping_init: float,
+              damping_up: float, damping_down: float, huber_delta: float,
+              refine_intrinsics: bool) -> tuple:
+    """What a captured loop depends on besides the problem's values: the
+    device, the dtype and shape of every field (the camera width among
+    them), run_ba's static arguments, and the float32 matmul precision
+    (a graph keeps the cuBLAS kernels chosen when it was captured)."""
+    precision = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+    return (prob.points.device, tuple((t.dtype, tuple(t.shape)) for t in prob),
+            max_iterations, cg_iters, damping_init, damping_up, damping_down, huber_delta,
+            refine_intrinsics, precision)
+
+
+def _capture(prob: BAProblem, statics: tuple) -> _Graph:
+    """Warm up on a side stream (cuBLAS's and cuSOLVER's handles and
+    workspaces for that stream; one LM iteration makes every call the loop
+    makes), then capture the loop there, reading static copies of `prob`,
+    with the tracer paused. ``capture_begin`` is called directly:
+    ``torch.cuda.graph`` would also empty the allocator's cache, which the
+    rest of the pipeline then allocates again."""
+    global _pool
+    if _pool is None:
+        _pool = torch.cuda.graph_pool_handle()
+    inputs = BAProblem(*(t.clone() for t in prob))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with profiling.paused(), torch.cuda.stream(side):
+        _lm_loop(inputs, 1, *statics[1:], None)
+        graph.capture_begin(pool=_pool)
+        outputs = _lm_loop(inputs, *statics, None)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return _Graph(graph, inputs, outputs)
+
+
+def _on_card(prob: BAProblem, statics: tuple):
+    """run_ba on the card. A key's first `_EAGER_CALLS` calls run the eager
+    loop; the next captures the graph; from then on a call copies `prob`
+    into the key's static inputs, replays, and clones the outputs.
+
+    The clones keep the port's map updates out of place: the next replay
+    overwrites the graph's outputs, and since every graph shares one pool,
+    so may another key's replay. Counted into the enclosing span:
+    ``ba.graph_replays`` and ``ba.graph_captures``; nothing is recorded
+    inside the graph.
+    """
+    key = graph_key(prob, *statics)
+    g = _graphs.pop(key, 0)
+    with torch.cuda.device(prob.points.device):
+        if not isinstance(g, _Graph) and g == _EAGER_CALLS:
+            g = _capture(prob, statics)
+            profiling.count("ba.graph_captures")
+        _graphs[key] = g if isinstance(g, _Graph) else g + 1
+        if len(_graphs) > _GRAPHS_KEPT:
+            _graphs.popitem(last=False)
+        if not isinstance(g, _Graph):
+            return _lm_loop(prob, *statics, None)
+        for buf, t in zip(g.inputs, prob):
+            buf.copy_(t)
+        g.graph.replay()
+        out, stats = g.outputs
+        out = prob._replace(cam_params=out.cam_params.clone(), points=out.points.clone(),
+                            intr=out.intr.clone())
+        stats = BAStats(*(t.clone() for t in stats))
+    profiling.count("ba.graph_replays")
+    return out, stats
 
 
 def bundle_adjust_map(state: MapState, max_iterations: int = 20, cg_iters: int = 20,

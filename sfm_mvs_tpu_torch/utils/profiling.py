@@ -33,6 +33,7 @@ One thread at a time: the spans nest by the order they open and close in.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -116,6 +117,19 @@ def disable() -> None:
 
 def enabled() -> bool:
     return _on
+
+
+@contextlib.contextmanager
+def paused():
+    """Record nothing inside the block (a CUDA graph's capture, whose spans
+    would time the capture and whose tensor counts would alias the graph's
+    memory); the tracer is on again after it if it was on before."""
+    global _on
+    was, _on = _on, False
+    try:
+        yield
+    finally:
+        _on = was
 
 
 def reset() -> None:

@@ -26,7 +26,7 @@ from _torch_parity import J, N, T, ba_map, jax_and_port, rotation_angle_deg
 from sfm_mvs_tpu.models import ba as jba
 from sfm_mvs_tpu_torch.models import ba
 from sfm_mvs_tpu_torch.ops import lie
-from sfm_mvs_tpu_torch.utils import convert
+from sfm_mvs_tpu_torch.utils import convert, profiling
 
 ITERS, CG = 8, 30  # one JAX run_ba compile serves every 8-iteration solve
 
@@ -182,3 +182,111 @@ def test_convert_carries_ba_problem_and_stats(noisy):
     np.testing.assert_allclose(float(tst.final_cost), float(jst.final_cost), rtol=1e-3)
     back = convert.to_numpy(tout)
     assert type(back) is ba.BAProblem and back.points.dtype == np.float32
+
+
+# ---------------------------------------------------------------------------
+# run_ba's step counters and the card path's key, checked on the CPU: on a
+# CUDA problem run_ba replays the loop as a CUDA graph per key (chip_smoke.py
+# holds the graph to the eager loop on the card); either way it counts its
+# steps from the stats it returns.
+# ---------------------------------------------------------------------------
+
+
+STEP_COUNTERS = ("ba.lm_steps", "ba.active", "ba.accepted", "ba.cg_steps")
+
+
+def _traced(fn):
+    profiling.reset()
+    profiling.enable()
+    try:
+        out = fn()
+        return out, profiling.summary(profiling.export())
+    finally:
+        profiling.disable()
+        profiling.reset()
+
+
+def test_cpu_run_ba_runs_the_eager_loop(exact):
+    _, ts = exact
+    prob = ba.problem_from_map(ts)
+    graphs = dict(ba._graphs)
+    (_, stats), rec = _traced(lambda: ba.run_ba(prob, max_iterations=3, cg_iters=5))
+    assert rec["spans"]["ba.lm"]["calls"] == 3 and rec["spans"]["ba.cg"]["calls"] == 3
+    assert not [k for k in rec["counters"] if k.startswith("ba.graph_")]
+    assert rec["counters"]["ba.lm_steps"] == 3 and int(stats.accepted) > 0
+    assert ba._graphs == graphs
+
+
+@pytest.mark.parametrize("case, steps", [
+    (dict(max_iterations=ITERS, cg_iters=CG), (ITERS, None)),  # every step active
+    (dict(max_iterations=3, cg_iters=5, huber_delta=0.5), (3, None)),
+    (dict(max_iterations=20, cg_iters=10, damping_up=1e3), (None, None)),  # then the cap
+    (dict(max_iterations=20, cg_iters=4, masked=True), (14, 0)),  # rejected up to the cap
+])
+def test_run_ba_counts_its_steps_from_the_stats(noisy, case, steps):
+    _, ts = noisy
+    case = dict(case)
+    if case.pop("masked", False):
+        ts = ts._replace(obs_mask=torch.zeros_like(ts.obs_mask))
+    prob = ba.problem_from_map(ts)
+    (_, stats), rec = _traced(lambda: ba.run_ba(prob, **case))
+    n = case["max_iterations"]
+    assert {k: rec["counters"][k] for k in STEP_COUNTERS} == {
+        "ba.lm_steps": n, "ba.active": int(stats.iterations),
+        "ba.accepted": int(stats.accepted), "ba.cg_steps": n * case["cg_iters"]}
+    assert rec["spans"]["ba.lm"]["calls"] == rec["spans"]["ba.cg"]["calls"] == n
+    active, accepted = steps
+    assert int(stats.accepted) <= int(stats.iterations) <= n
+    if active is None:  # the damping cap stopped the loop after rejected steps
+        assert int(stats.accepted) < int(stats.iterations) < n
+    else:
+        assert int(stats.iterations) == active
+    if accepted is not None:
+        assert int(stats.accepted) == accepted
+
+
+_STATICS = dict(max_iterations=8, cg_iters=15, damping_init=1e-3, damping_up=4.0,
+                damping_down=2.0, huber_delta=0.0, refine_intrinsics=False)
+
+
+def _grown(t):
+    return torch.cat([t, t[:1]])
+
+
+@pytest.mark.parametrize("change", [
+    *[("arg", k, v) for k, v in dict(max_iterations=9, cg_iters=16, damping_init=1e-2,
+                                     damping_up=3.0, damping_down=3.0, huber_delta=3.0,
+                                     refine_intrinsics=True).items()],
+    *[("field", f) for f in ba.BAProblem._fields],
+    ("camera_width_9",), ("dtype",), ("device",), ("matmul_precision",), ("cudnn_tf32",),
+])
+def test_graph_key_differs_per_static_argument_and_shape(exact, change):
+    _, ts = exact
+    prob = ba.problem_from_map(ts)
+    key = ba.graph_key(prob, **_STATICS)
+    moved = prob._replace(points=prob.points + 1.0, obs_uv=prob.obs_uv * 2.0,
+                          frozen=~prob.frozen)
+    assert ba.graph_key(moved, **_STATICS) == key  # values are not in the key
+    statics = dict(_STATICS)
+    if change[0] == "arg":
+        statics[change[1]] = change[2]
+    elif change[0] == "field":
+        prob = prob._replace(**{change[1]: _grown(getattr(prob, change[1]))})
+    elif change[0] == "camera_width_9":
+        prob = prob._replace(cam_params=torch.cat(
+            [prob.cam_params, torch.zeros_like(prob.cam_params[:, :3])], -1))
+    elif change[0] == "dtype":
+        prob = prob._replace(**{f: getattr(prob, f).double()
+                                for f in ("cam_params", "points", "obs_uv", "K", "intr")})
+    elif change[0] == "device":
+        prob = ba.BAProblem(*(t.to("meta") for t in prob))
+    precision, cudnn_tf32 = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    try:
+        if change[0] == "matmul_precision":  # TF32 products, which a graph would keep
+            torch.set_float32_matmul_precision("high")
+        elif change[0] == "cudnn_tf32":
+            torch.backends.cudnn.allow_tf32 = not cudnn_tf32
+        assert ba.graph_key(prob, **statics) != key
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32

@@ -228,3 +228,19 @@ def test_cli_leaves_the_tracer_as_it_found_it(tmp_path):
     assert cli.main(["--image-dir", str(tmp_path), "--out", str(tmp_path / "o"),
                      "--device", "cpu"]) == 2  # no images
     assert not profiling.enabled() and profiling.export()["spans"] == []
+
+
+def test_paused_records_nothing_and_restores_the_tracer():
+    with tracer_on():
+        with profiling.span("outer"):
+            with profiling.paused():
+                assert not profiling.enabled()
+                with profiling.span("hidden"):
+                    profiling.count("n", torch.ones(()))
+            profiling.count("m")
+        assert profiling.enabled()
+        rec = profiling.summary(profiling.export())
+    assert set(rec["spans"]) == {"outer"} and rec["counters"] == {"m": 1}
+    with profiling.paused():
+        pass
+    assert not profiling.enabled()
