@@ -1,7 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the check
-    python3 chip_smoke.py --profile    # the check, then where a frame's time goes
 
 Phases, each printing one line (any failure exits non-zero):
 
@@ -160,23 +159,9 @@ Phases, each printing one line (any failure exits non-zero):
 The scenes of phases 11 and 14 are rendered on the host by one spawned
 worker process, started after the build, while phases 3-10 drive the card.
 
-``--profile`` adds, after phase 15, bench.py's stage breakdown with
-torch.profiler over two warm frames and one LM iteration, torch.profiler
-over one ``mvs._plane_sweep_batch`` call of 4 reference frames (with its
-time and MVS kernel launches beside the plain code's), and a KLT frame's
-stage breakdown with torch.profiler over one warm ``klt_step`` (tables in
-chiprun_out/profile.txt).
-
     python3 chip_smoke.py --mvs  # phases 1, 2 and 3b only (~2 min)
 
     python3 chip_smoke.py --ba-graph  # phases 1 and 3c only (~2 min)
-
-    python3 chip_smoke.py --microbench  # only the card's limits behind K1
-
-builds ``csrc/microbench.cu`` and prints the FFMA rate (independent
-chains; an 8x8 outer product from registers), the SM cycles of a warp's
-float4 shared load by address pattern, and the SM cycles to copy a
-2048-float chunk with 4-byte (transposing) or 16-byte ``cp.async``.
 """
 
 from __future__ import annotations
@@ -262,11 +247,11 @@ def phase_build():
     t0 = time.time()
     path = matching_cuda.build()
     secs = time.time() - t0
-    report = [ln.strip() for ln in matching_cuda.build_log.splitlines()
+    report = [ln.strip() for ln in matching_cuda.LIB.log.splitlines()
               if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     log(f"[build] csrc/knn2.cu -> {path.name} in {secs:.1f}s; " + " | ".join(report))
     registers = spills = None
-    for entry, (regs, spill) in cuda_build.ptxas_report(matching_cuda.build_log).items():
+    for entry, (regs, spill) in cuda_build.ptxas_report(matching_cuda.LIB.log).items():
         if "knn2_tile_kernel" in entry:
             registers, spills = regs, spill
     if registers is None or spills is None:
@@ -275,12 +260,12 @@ def phase_build():
         raise AssertionError(f"knn2_tile_kernel spills {spills} bytes")
     t0 = time.time()
     path = mvs_cuda.build()
-    mvs_regs = {name: regs for entry, regs in cuda_build.ptxas_report(mvs_cuda.build_log).items()
+    mvs_regs = {name: regs for entry, regs in cuda_build.ptxas_report(mvs_cuda.LIB.log).items()
                 for name in ("sweep_kernel", "zero_mean_kernel") if name in entry}
     log(f"[build] csrc/mvs_sweep.cu -> {path.name} in {time.time() - t0:.1f}s; "
         f"(registers, spill bytes) {mvs_regs}")
     if len(mvs_regs) != 2 or any(r is None or sp is None for r, sp in mvs_regs.values()):
-        raise AssertionError(f"no ptxas report for the MVS kernels:\n{mvs_cuda.build_log}")
+        raise AssertionError(f"no ptxas report for the MVS kernels:\n{mvs_cuda.LIB.log}")
     if any(sp for _, sp in mvs_regs.values()):
         raise AssertionError(f"an MVS kernel spills: {mvs_regs}")
     secs += time.time() - t0
@@ -1725,7 +1710,7 @@ def phase_mvs(stack8, state, Rt_gt, gt_depths):
 # the rendered depths (densify_map's quantiles and widening): portbench's
 # fountain11 scene at 1536x1024 (references 4-7), where every level is a
 # whole number of 32-px tiles, and the staircase scene at 968x648
-# (references 10-13, profile_sweep's), where every level ends in ragged
+# (references 10-13), where every level ends in ragged
 # tiles (the clamped halo and the out-of-image guards), as phase 9, the
 # CLI's --densify and the distributed MVS run. The yardstick is the plain
 # code run in float64 on the same float32 inputs; the plain code in
@@ -2046,154 +2031,6 @@ def phase_mvs_kernel(sweep_regs, stair) -> dict:
     return {"sweep_ms": per_level, "zero_mean_ms": zm_ms, "bound_ms": bound, **paths}
 
 
-def profile_sweep(stack8, state):
-    """torch.profiler over one ``mvs._plane_sweep_batch`` call of 4 reference
-    frames (10..13, each with its 4 sweep neighbors), as densify_map makes it."""
-    from sfm_mvs_tpu_torch.models import mvs
-
-    refs = [10, 11, 12, 13]
-    nbrs = [[r - 2, r - 1, r + 1, r + 2] for r in refs]
-    lo, hi = mvs._depth_ranges(state)
-    idx = torch.as_tensor(refs, device=DEVICE)
-    nidx = torch.as_tensor(nbrs, device=DEVICE)
-    imgs = stack8.float() / 255.0
-
-    def sweep():
-        return mvs._plane_sweep_batch(imgs[idx], imgs[nidx], state.poses[idx],
-                                      state.poses[nidx], state.K, lo[idx], hi[idx])
-
-    sweep()
-    wall, busy, n_ops, prof = _profile_window(sweep)
-    paths = _pass1_paths(sweep)
-    summary = (f"[profile] one _plane_sweep_batch of 4 refs at {tuple(imgs.shape[1:])}, "
-               f"4 neighbors, 64 depths: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
-               f"idle share {1 - busy / wall:.3f}, {n_ops} device ops; launch-amortized "
-               f"{paths['kernel_ms']:.3f} ms with {paths['kernel_launches']} MVS kernel launches, "
-               f"the plain code {paths['plain_ms']:.3f} ms ({paths['plain_ops']} device ops)")
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
-                                      max_name_column_width=70)
-    with open("chiprun_out/profile.txt", "a") as fh:
-        fh.write("\n".join([summary, table]) + "\n")
-    log(summary)
-
-
-def phase_profile(imgs, cfg, n_frames=10):
-    """Where the time goes (``--profile`` only): the synchronized wall time
-    of each stage of bench.py's path over its first ``n_frames`` frames and
-    a sweep over them, then torch.profiler over two warm frames with BA and
-    over one LM iteration at the same map size, for the device's busy share
-    and its busiest operations. Full tables go to chiprun_out/profile.txt."""
-    from sfm_mvs_tpu_torch.models import ba, densify, incremental, map_store, refine
-    from sfm_mvs_tpu_torch.ops import matching, pnp, ransac, sift, triangulation
-
-    stack8 = stage_u8(imgs[:n_frames])
-    with StageClock([
-        (sift, "detect_and_compute", "detect"),
-        (matching, "match_with_config", "match"),
-        (ransac, "ransac_pnp", "ransac_pnp"),
-        (pnp, "refine_pose_gauss_newton", "pnp_polish (2 per frame)"),
-        (triangulation, "triangulate_euclidean", "triangulate"),
-        (map_store, "append_points", "append_points"),
-        (map_store, "append_observations", "append_observations (4 per frame)"),
-        (incremental, "register_frame", "register_frame"),
-        (ba, "bundle_adjust_map", "ba.bundle_adjust_map (8 LM iterations)"),
-        (densify, "sweep_pair", "densify.sweep_pair"),
-        (refine, "cull_map", "refine.cull_map"),
-    ]) as clock:
-        pstate, records = bench_frames(stack8, cfg)
-        bench_sweep(stack8, pstate.map, cfg)
-    frame_ms = [r["wall_s"] * 1e3 for r in records[1:]]
-    lines = [f"bench path, frames 2..{n_frames - 1} wall ms incl. BA: "
-             + ", ".join(f"{t:.1f}" for t in frame_ms)]
-    for key, secs in clock.calls.items():
-        warm = secs[2:] if len(secs) > 4 else secs
-        lines.append(f"{key:42s} n={len(secs):4d} median {statistics.median(warm) * 1e3:8.2f} ms")
-
-    # Two warm frames with BA (features detected beforehand), then one LM
-    # iteration (solve + candidate cost) on the map they leave.
-    dev = DEVICE
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    feats = [sift.detect_and_compute(gray_of(stack8, i), cfg.frontend) for i in range(5)]
-    bgr = [bgr_of(stack8, i) for i in range(5)]
-    K = torch.as_tensor(cfg.intrinsic_matrix(), device=dev)
-    box = {}
-    box["ps"], _ = incremental.init_from_bootstrap(gen, feats[0], feats[1], bgr[1], K, cfg)
-
-    def frame(i):
-        ps, _ = incremental.register_frame(gen, box["ps"], feats[i], bgr[i], cfg)
-        mstate, _ = ba.bundle_adjust_map(ps.map, max_iterations=8, cg_iters=15)
-        box["ps"] = ps._replace(map=mstate)
-
-    frame(2)
-    wall, busy, n_ops, prof = _profile_window(lambda: (frame(3), frame(4)))
-    summary = (f"[profile] 2 warm frames (register + BA): wall {wall:.1f} ms, device busy "
-               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {n_ops} device ops")
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30,
-                                      max_name_column_width=70)
-
-    prob = ba.problem_from_map(box["ps"].map)
-    lam = torch.tensor(1e-3, device=dev)
-
-    def lm_iteration():
-        dc, dp, _ = ba._lm_solve(prob, lam, 15)
-        ba._cost(prob._replace(cam_params=prob.cam_params + dc, points=prob.points + dp))
-
-    lm_iteration()
-    wall_i, busy_i, ops_i, prof_i = _profile_window(lm_iteration)
-    P, C = prob.obs_mask.shape
-    summary_i = (f"[profile] one LM iteration at P={P}, C={C} (15 CG steps): wall "
-                 f"{wall_i:.2f} ms, device busy {busy_i:.2f} ms, idle share "
-                 f"{1 - busy_i / wall_i:.3f}, {ops_i} device ops")
-    table_i = prof_i.key_averages().table(sort_by="self_device_time_total", row_limit=25,
-                                          max_name_column_width=70)
-    with open("chiprun_out/profile.txt", "w") as fh:
-        fh.write("\n".join(lines + [summary, table, summary_i, table_i]) + "\n")
-    for ln in lines:
-        log(f"[profile] {ln}")
-    log(summary)
-    log(summary_i)
-
-
-def profile_klt(imgs, cfg, n_frames=12):
-    """Where a KLT frame's time goes (``--profile`` only): the synchronized
-    wall of each stage of ``KltSfM.run`` over phase 4's first ``n_frames``
-    frames, then torch.profiler over one warm ``klt_step``."""
-    from sfm_mvs_tpu_torch.models import klt, map_store
-    from sfm_mvs_tpu_torch.models.incremental import frame_generator
-    from sfm_mvs_tpu_torch.ops import optical_flow, ransac, sift, triangulation
-
-    with StageClock([
-        (klt, "klt_step", "klt_step"),
-        (optical_flow, "track_points", "track_points"),
-        (ransac, "ransac_pnp", "ransac_pnp"),
-        (triangulation, "triangulate_euclidean", "triangulate"),
-        (map_store, "append_observations", "append_observations (3 per frame)"),
-        (sift, "detect_and_compute", "detect (frames 0, 1 and every 5th)"),
-        (klt, "replenish", "replenish"),
-    ]) as clock:
-        k = klt.KltSfM(cfg, redetect_every=5, device=DEVICE)
-        k.run(imgs[:n_frames])
-    lines = [f"KLT frames 2..{n_frames - 1}, stage medians:"]
-    for key, secs in clock.calls.items():
-        lines.append(f"{key:42s} n={len(secs):4d} median {statistics.median(secs) * 1e3:8.2f} ms")
-
-    state = k.state
-    g = torch.as_tensor(imgs[n_frames], device=DEVICE)
-    gen = frame_generator(DEVICE, 0, n_frames)
-    klt.klt_step(gen, state, g, cfg)
-    wall, busy, n_ops, prof = _profile_window(lambda: klt.klt_step(gen, state, g, cfg))
-    summary = (f"[profile] one warm klt_step (4096 slots): wall {wall:.1f} ms, device busy "
-               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {n_ops} device ops")
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25,
-                                      max_name_column_width=70)
-    with open("chiprun_out/profile.txt", "a") as fh:
-        fh.write("\n".join(lines + [summary, table]) + "\n")
-    for ln in lines:
-        log(f"[profile] {ln}")
-    log(summary)
-
-
 DIST_DIR = "chiprun_out/dist"
 WINDOW = dict(window_cams=32, window_points=16384, freeze_cams=8, max_iterations=6,
               cg_iters=12)  # benchmarks/large_scene.py:188-195
@@ -2502,59 +2339,6 @@ def phase_distributed(bench_map, mvs_state, s_align, mvs_pts, stitch_map, stack8
     return sum(r["launches"][1] for r in gloo), sum(r["mvs_launches"][0] for r in gloo)
 
 
-def microbench() -> None:
-    """The card's limits behind K1's design (csrc/microbench.cu), each a
-    kernel timed with CUDA events after a warm-up launch."""
-    import ctypes
-
-    from sfm_mvs_tpu_torch.ops import cuda_build
-
-    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    out, _ = cuda_build.compile_library(cuda_build.CSRC / "microbench.cu", flags, "microbench")
-    lib = ctypes.CDLL(str(out))
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.mb_ffma.argtypes = [i, i, i, p, p]
-    lib.mb_lds128.argtypes = [i, i, i, p]
-    lib.mb_copy.argtypes = [i, i, i, p, p]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0]) * 1e6
-
-    def timed(fn, *args):
-        for _ in range(2):
-            if fn(*args):
-                raise RuntimeError(f"{fn.__name__} failed to launch")
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn(*args)
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) * 1e-3
-
-    fout = torch.zeros(1, device=DEVICE)
-    iout = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-    vals = torch.rand(256, device=DEVICE)
-    for outer, name, fmas in ((0, "independent chains", 128), (1, "8x8 outer product", 256)):
-        blocks, iters = 2 * sms, 20000
-        secs = timed(lib.mb_ffma, outer, blocks, iters, fout.data_ptr(), vals.data_ptr())
-        log(f"[micro] FFMA {name}: {2 * blocks * 256 * iters * fmas / secs / 1e12:.1f} TFLOP/s")
-    for mode, name in enumerate(("32 distinct", "8 distinct per quarter-warp (knn2 train)",
-                                 "1 per quarter-warp", "1 per half-warp (knn2 query)", "1 per warp")):
-        blocks, iters = 4 * sms, 4096
-        secs = timed(lib.mb_lds128, mode, blocks, iters, iout.data_ptr())
-        per_sm = blocks * 16 * iters * 8 / sms
-        log(f"[micro] LDS.128, {name}: {secs * clock_hz / per_sm:.2f} SM cycles per warp load")
-    g = torch.rand(64 * 128 * 128, device=DEVICE)
-    for wide, name in ((0, "4-byte cp.async, transposed"), (1, "16-byte cp.async")):
-        blocks, iters = 2 * sms, 4000
-        secs = timed(lib.mb_copy, wide, blocks, iters, g.data_ptr(), fout.data_ptr())
-        log(f"[micro] {name}: {secs * clock_hz / (blocks * iters / sms):.1f} SM cycles per "
-            f"2048-float chunk")
-    log(f"[micro] at {clock_hz / 1e6:.0f} MHz (clocks.max.sm), {sms} SMs")
-
-
 class Renders:
     """The scenes of phases 11 and 14, rendered on the host by one spawned
     worker process while the earlier phases drive the card."""
@@ -2588,9 +2372,6 @@ def main(argv) -> int:
     import sfm_mvs_tpu_torch  # noqa: F401  (sets full-fp32 matmul flags)
 
     os.makedirs("chiprun_out", exist_ok=True)
-    if "--microbench" in argv:
-        microbench()
-        return 0
     if "--ba-graph" in argv:
         phase_ba_graph()
         return 0
@@ -2639,10 +2420,6 @@ def run_phases(argv, smi, t_start, build_s, registers, spills, mvs_regs, renders
     batch_launches += n
     mvs_launches += n_mvs
     del stitch_map, mvs_pts
-    if "--profile" in argv:
-        phase_profile(imgs, cfg)
-        profile_sweep(stack8, mvs_map)
-        profile_klt(imgs, cfg)
     log(f"[total] {time.time() - t_start:.1f} s, kernel build included")
     print(smi)
     print(json.dumps({"kernels": [{

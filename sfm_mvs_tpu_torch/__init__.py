@@ -13,8 +13,7 @@ the densification sweep and BA of the intrinsics), the track-based global
 pipeline, the KLT-tracking pipeline (pyramidal Lucas-Kanade), the
 split-phase loop stitching (covisibility retrieval, batched
 match-and-verify, re-apply after BA), plane-sweep MVS and the CLI
-(``python -m sfm_mvs_tpu_torch``). Multi-GPU (the JAX package's
-``parallel/``) is not ported yet.
+(``python -m sfm_mvs_tpu_torch``).
 
 Subpackages mirror the JAX package's layout and names:
 
@@ -22,8 +21,10 @@ ops     Geometry and vision functions on tensors, plus the CUDA kernels.
 models  Map store, bootstraps, incremental / global / KLT drivers, bundle
         adjustment, refinement, densification, stitching, MVS.
 utils   Config (shared dataclasses), IO and checkpoints, evaluation,
-        metrics, profiling, synthetic scenes, visualization, conversion
-        from the JAX package's state.
+        metrics, profiling, the device rule, synthetic scenes,
+        visualization, conversion from the JAX package's state.
+parallel  Process-group sharding (multi-GPU): the batched front end,
+        distributed BA, the sharded map.
 """
 
 __version__ = "0.1.0"

@@ -26,6 +26,8 @@ import sys
 
 import numpy as np
 
+from sfm_mvs_tpu_torch.utils.device import resolve_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -151,16 +153,6 @@ def config_from_args(args):
     )
 
 
-def _device(name: str):
-    import torch
-
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: CUDA is not available on this machine "
-                           "(use --device cpu to run on the CPU)")
-    return dev
-
-
 def _optional_artifact(path: str, fn, *args, **kwargs) -> None:
     """Write an artifact that needs matplotlib/PIL; where the package is not
     installed, skip the file with a warning."""
@@ -187,7 +179,7 @@ def main(argv=None) -> int:
 def _main(argv, keep_trace: bool) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    dev = _device(args.device)
+    dev = resolve_device(args.device)
 
     from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM
     from sfm_mvs_tpu_torch.native import ImageLoader

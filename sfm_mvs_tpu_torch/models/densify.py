@@ -30,6 +30,7 @@ from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops import matching, projection, sift, triangulation
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.utils.config import FrontendConfig, SfmConfig
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 
 def sweep_frontend_config(cfg: SfmConfig) -> FrontendConfig:
@@ -160,7 +161,7 @@ def redetect_for_sweep(images_gray: Sequence, cfg: SfmConfig,
     cfg.k1/k2 (and K given) the keypoints are undistorted once here, as the
     driver does at detection.
     """
-    from sfm_mvs_tpu_torch.models.incremental import _undistort_features, resolve_device
+    from sfm_mvs_tpu_torch.models.incremental import _undistort_features
 
     fc = sweep_frontend_config(cfg)
     dev = None

@@ -38,13 +38,13 @@ import numpy as np
 import torch
 
 from sfm_mvs_tpu_torch.models import map_store
-from sfm_mvs_tpu_torch.models.incremental import resolve_device
 from sfm_mvs_tpu_torch.ops import matching, projection, ransac, sift
 from sfm_mvs_tpu_torch.ops.epipolar import recover_pose
 from sfm_mvs_tpu_torch.ops.matching_cuda import knn_match_cuda, knn_match_cuda_batch
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.utils import profiling
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 # The inlier floor of a loop-closure candidate (strongest_loop_pairs), and of
 # a pair that the view graph's counter ``viewgraph.useful_pairs`` counts.

@@ -34,6 +34,7 @@ from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.parallel import frontend
 from sfm_mvs_tpu_torch.utils import profiling
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 
 class FrameStats(NamedTuple):
@@ -250,16 +251,6 @@ def _register_frame(gen, pstate, new_feats, image_bgr, cfg, anchor_cam):
         accepted=accepted,
     )
     return _select(accepted, new_pstate, pstate), stats
-
-
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device without a usable GPU raises
-    (the Python API runs on the card unless the caller asks for the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={str(device)!r}: CUDA is not available on this machine "
-                           "(pass device=\"cpu\" to run on the CPU)")
-    return dev
 
 
 def frame_generator(device, seed: int, frame: int, stream: int = 0) -> torch.Generator:

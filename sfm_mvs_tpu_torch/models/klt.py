@@ -24,15 +24,14 @@ import numpy as np
 import torch
 
 from sfm_mvs_tpu_torch.models import map_store
-from sfm_mvs_tpu_torch.models.incremental import (
-    _select, _track_vector, frame_generator, resolve_device,
-)
+from sfm_mvs_tpu_torch.models.incremental import _select, _track_vector, frame_generator
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.models.tracks import _gray_colors
 from sfm_mvs_tpu_torch.models.two_view import bootstrap
 from sfm_mvs_tpu_torch.ops import optical_flow, projection, ransac, sift, triangulation
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 
 class KltState(NamedTuple):

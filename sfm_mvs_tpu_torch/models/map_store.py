@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from sfm_mvs_tpu_torch.utils.config import MapConfig
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 
 class MapState(NamedTuple):
@@ -41,8 +42,6 @@ def init_map(K, cfg: MapConfig, device=None) -> MapState:
         if isinstance(K, torch.Tensor):
             device = K.device
         else:
-            from sfm_mvs_tpu_torch.models.incremental import resolve_device
-
             device = resolve_device("cuda")
     P, C = cfg.max_points, cfg.max_cameras
     f32 = dict(dtype=torch.float32, device=device)

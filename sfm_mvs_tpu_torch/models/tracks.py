@@ -25,12 +25,12 @@ import torch
 from sfm_mvs_tpu_torch.models import ba as ba_mod
 from sfm_mvs_tpu_torch.models import map_store
 from sfm_mvs_tpu_torch.models.exhaustive import _match
-from sfm_mvs_tpu_torch.models.incremental import resolve_device
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops import homography, matching, projection, ransac, sift, triangulation
 from sfm_mvs_tpu_torch.ops.epipolar import recover_pose
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.utils.config import SfmConfig
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 
 class PairEstimate(NamedTuple):

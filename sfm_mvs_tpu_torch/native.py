@@ -2,12 +2,13 @@
 
 The port's counterpart of ``sfm_mvs_tpu/native.py``: the same C++ source
 and entry points (JPEG/PNG decode to float32, the cv2.pyrDown-equivalent
-downscale, PLY export), without the JAX package. The library is compiled
-by ``g++`` from the checkout's source into the git-ignored
-``sfm_mvs_tpu_torch/_build/`` on first use, never at import. It needs the
-libjpeg and libpng headers; where they are missing the build fails once
-and every entry point takes its plain fallback: PIL decode, the port's
-``ops/pyramid.pyr_down``, ``utils/io.to_ply``'s numpy writer. Native calls
+downscale, PLY export), without the JAX package. The library is declared to
+``ops/cuda_build.py``, which compiles it with ``g++`` from the checkout's
+source into the git-ignored ``sfm_mvs_tpu_torch/_build/`` on first use,
+never at import. It needs the libjpeg and libpng headers; where they are
+missing the build fails once and every entry point takes its plain
+fallback: PIL decode, the port's ``ops/pyramid.pyr_down``,
+``utils/io.to_ply``'s numpy writer. Native calls
 release the GIL, so the ``ImageLoader`` prefetcher overlaps decode with
 device work.
 """
@@ -15,82 +16,45 @@ device work.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parent
-_SRC = _ROOT.parent / "native" / "sfm_native.cc"
-_BUILD_DIR = _ROOT / "_build"
-_CXX_FLAGS = ["-O3", "-fPIC", "-fopenmp", "-Wall", "-shared"]
-_LIBS = ["-ljpeg", "-lpng"]
+from sfm_mvs_tpu_torch.ops import cuda_build
 
-_lib = None
-_lib_lock = threading.Lock()
+_SRC = Path(__file__).resolve().parent.parent / "native" / "sfm_native.cc"
 _f32p = ctypes.POINTER(ctypes.c_float)
-build_log = ""
+_i, _ip, _s = ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p
 
 
-def _build() -> Path | None:
-    """Compile the native source (cached by source and flags hash).
-    Returns the library path, or None when it cannot be built."""
-    global build_log
+def _cxx() -> str:
     cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None or not _SRC.exists():
-        build_log = "no C++ compiler or no native/sfm_native.cc"
-        return None
-    tag = hashlib.sha1(_SRC.read_bytes() + " ".join(_CXX_FLAGS + _LIBS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libsfm_native_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *_CXX_FLAGS, "-o", str(tmp), str(_SRC), *_LIBS],
-                          capture_output=True, text=True, timeout=300)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        return None
-    os.replace(tmp, out)  # atomic: concurrent builders race harmlessly
-    return out
+    if cxx is None:
+        raise RuntimeError("no C++ compiler: the native host runtime cannot be built")
+    return cxx
+
+
+LIB = cuda_build.Library(
+    _SRC, "sfm_native", ["-O3", "-fPIC", "-fopenmp", "-Wall", "-shared"],
+    functions={"sn_image_size": (_i, [_s, _ip, _ip]),
+               "sn_decode_gray_f32": (_i, [_s, _f32p, _i]),
+               "sn_decode_bgr_f32": (_i, [_s, _f32p, _i]),
+               "sn_pyr_down_f32": (None, [_f32p, _i, _i, _f32p]),
+               "sn_write_ply": (_i, [_s, _f32p, _f32p, _i, ctypes.c_float, ctypes.c_float, _i])},
+    compiler=_cxx, libs=["-ljpeg", "-lpng"])
 
 
 def _load():
-    global _lib, build_log
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        path = _build()
-        try:
-            lib = ctypes.CDLL(str(path)) if path is not None else None
-        except OSError as e:  # e.g. a cached build whose libjpeg is absent here
-            build_log = str(e)
-            lib = None
-        if lib is None:
-            _lib = False
-            return _lib
-        lib.sn_image_size.argtypes = [
-            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        lib.sn_image_size.restype = ctypes.c_int
-        lib.sn_decode_gray_f32.argtypes = [ctypes.c_char_p, _f32p, ctypes.c_int]
-        lib.sn_decode_gray_f32.restype = ctypes.c_int
-        lib.sn_decode_bgr_f32.argtypes = [ctypes.c_char_p, _f32p, ctypes.c_int]
-        lib.sn_decode_bgr_f32.restype = ctypes.c_int
-        lib.sn_pyr_down_f32.argtypes = [_f32p, ctypes.c_int, ctypes.c_int, _f32p]
-        lib.sn_pyr_down_f32.restype = None
-        lib.sn_write_ply.argtypes = [
-            ctypes.c_char_p, _f32p, _f32p, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int]
-        lib.sn_write_ply.restype = ctypes.c_int
-        _lib = lib
-        return _lib
+    """The bound library, or None where it does not build or load here
+    (e.g. no libjpeg headers, or a cached build whose libjpeg is absent)."""
+    try:
+        return LIB.load()
+    except (RuntimeError, OSError):
+        return None
 
 
 def available() -> bool:

@@ -23,17 +23,16 @@ the same two kernels (the batch is the grid's third axis), the counterpart
 of the JAX package's vmapped matcher; each pair's outputs equal its single
 launch's bit for bit.
 
-The library is compiled from the checkout's source with ``nvcc`` for
-``sm_90a`` on first use, into ``sfm_mvs_tpu_torch/_build/`` (listed in
-.gitignore), and bound with ``ctypes``. Nothing is compiled or loaded at
-import time, so this module imports on a machine without nvcc or a GPU.
+The library (``LIB``) is declared to ``ops/cuda_build.py``, which compiles
+the checkout's source with ``nvcc`` for ``sm_90a`` on first use and binds
+it with ``ctypes``. Nothing is compiled or loaded at import time, so this
+module imports on a machine without nvcc or a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from pathlib import Path
 
 import torch
@@ -51,53 +50,22 @@ TILE = 128
 MAX_DIM = 128
 BLOCKS_PER_SM = 2
 
-_lib = None
-_lib_lock = threading.Lock()
-build_log = ""
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIB = cuda_build.Library(
+    _SRC, "knn2", cuda_build.NVCC_FLAGS,
+    functions={"knn2_launch": (_i, [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p,
+                                    _p, _f, _p, _p, _i, _p])},
+    constants={"knn2_tile_rows": TILE, "knn2_tile_cols": TILE, "knn2_max_dim": MAX_DIM},
+    mismatch="tiles {got}, wrapper expects {want}")
 
 
 def build() -> Path:
     """Compile csrc/knn2.cu into a shared library (cached by source hash).
 
     Returns the library path. The compiler's register/spill report is kept
-    in the module attribute ``build_log``.
+    in ``LIB.log``.
     """
-    global build_log
-    path, log = cuda_build.compile_library(_SRC, cuda_build.NVCC_FLAGS, "knn2")
-    if log:
-        build_log = log
-    return path
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.knn2_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, f, p, p,
-                                        i, p]
-            lib.knn2_launch.restype = i
-            for name in ("knn2_tile_rows", "knn2_tile_cols", "knn2_max_dim"):
-                getattr(lib, name).argtypes = []
-                getattr(lib, name).restype = i
-            sizes = (lib.knn2_tile_rows(), lib.knn2_tile_cols(), lib.knn2_max_dim())
-            if sizes != (TILE, TILE, MAX_DIM):
-                raise RuntimeError(f"{_SRC.name} tiles {sizes}, wrapper expects "
-                                   f"{(TILE, TILE, MAX_DIM)}")
-            _lib = lib
-    return _lib
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return LIB.build()
 
 
 @functools.lru_cache(maxsize=64)
@@ -150,9 +118,9 @@ def _launch_kernels(desc0, desc1, valid1, valid0, ratio):
     nd = desc0.dim()
     if nd not in (2, 3):
         raise ValueError(f"desc0 must be (N0, D) or (B, N0, D), got {tuple(desc0.shape)}")
-    _check("desc0", desc0, torch.float32, nd)
-    _check("desc1", desc1, torch.float32, nd)
-    _check("valid1", valid1, torch.bool, nd - 1)
+    cuda_build.check_tensor("desc0", desc0, torch.float32, ndim=nd)
+    cuda_build.check_tensor("desc1", desc1, torch.float32, ndim=nd)
+    cuda_build.check_tensor("valid1", valid1, torch.bool, ndim=nd - 1)
     lead = tuple(desc0.shape[:-2])
     b = desc0.shape[0] if nd == 3 else 1
     n0, d = desc0.shape[-2:]
@@ -170,11 +138,11 @@ def _launch_kernels(desc0, desc1, valid1, valid0, ratio):
     if not (desc1.device == valid1.device == dev):
         raise ValueError("desc0, desc1 and valid1 must be on one device")
     if valid0 is not None:
-        _check("valid0", valid0, torch.bool, nd - 1)
+        cuda_build.check_tensor("valid0", valid0, torch.bool, ndim=nd - 1)
         if tuple(valid0.shape) != lead + (n0,) or valid0.device != dev:
             raise ValueError(f"valid0 {tuple(valid0.shape)} on {valid0.device} does not "
                              f"fit desc0 {tuple(desc0.shape)} on {dev}")
-    lib = _load()
+    lib = LIB.load()
     qsq = squared_norms(desc0)
     tsq = squared_norms(desc1)
     splits, per = plan_splits(n0, n1, _sm_count(dev.index), b)
@@ -191,10 +159,7 @@ def _launch_kernels(desc0, desc1, valid1, valid0, ratio):
         None if valid0 is None else valid0.data_ptr(),
         ratio * ratio,  # rounded to float32, as the plain version's scalar is
         None if valid0 is None else jj.data_ptr(),
-        None if ok is None else ok.data_ptr(),
-        # The raw handle of the current stream: what torch.cuda.current_stream
-        # gives, without building a Stream object on every call.
-        dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+        None if ok is None else ok.data_ptr(), dev.index, cuda_build.current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"knn2 kernel launch failed with CUDA error {err}")
@@ -238,11 +203,7 @@ def knn_match_cuda(
     the ratio test and writes idx0. On CPU tensors it returns the plain
     version's result.
     """
-    if desc0.device.type == "cpu":
-        return knn_match(desc0, desc1, valid0, valid1, ratio=ratio)
-    _, jj, ok = _launch(desc0, desc1, valid1, valid0, ratio)
-    idx0, j1 = jj
-    return Matches(idx0=idx0, idx1=j1, valid=ok)
+    return _knn_match(desc0, desc1, valid0, valid1, ratio)
 
 
 def knn_match_cuda_batch(
@@ -261,10 +222,16 @@ def knn_match_cuda_batch(
     equal its single launch's. On CPU tensors it returns the plain batched
     version's result.
     """
+    if desc0.device.type != "cpu" and desc0.dim() != 3:
+        raise ValueError(f"desc0 must be (B, N0, D), got {tuple(desc0.shape)}")
+    return _knn_match(desc0, desc1, valid0, valid1, ratio)
+
+
+def _knn_match(desc0, desc1, valid0, valid1, ratio) -> Matches:
+    """Both public matchers' body: the plain version on CPU tensors, else
+    one launch for one pair or a batch (the leading axis of 3-D inputs)."""
     if desc0.device.type == "cpu":
         return knn_match(desc0, desc1, valid0, valid1, ratio=ratio)
-    if desc0.dim() != 3:
-        raise ValueError(f"desc0 must be (B, N0, D), got {tuple(desc0.shape)}")
     _, jj, ok = _launch(desc0, desc1, valid1, valid0, ratio)
     idx0, j1 = jj
     return Matches(idx0=idx0, idx1=j1, valid=ok)

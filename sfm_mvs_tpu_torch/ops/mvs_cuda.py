@@ -25,7 +25,6 @@ never synchronize, and raise on inputs the kernels do not take.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import torch
@@ -43,40 +42,19 @@ THREADS = 256
 # A block's dynamic shared memory may not pass this (H100).
 MAX_SMEM = 232448
 
-build_log = ""
-
-_lib = None
-_lib_lock = threading.Lock()
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = cuda_build.Library(
+    _SRC, "mvs_sweep", _NVCC_FLAGS,
+    functions={"mvs_sweep_launch": (_i, [_p] * 9 + [_i] * 11 + [_p] * 4 + [_i, _p]),
+               "mvs_zero_mean_launch": (_i, [_p] * 4 + [_i] * 8 + [_i, _p])},
+    constants={"mvs_tile": TILE, "mvs_threads": THREADS},
+    mismatch="tiles {got[0]} x {got[1]} threads, wrapper expects {want[0]} x {want[1]}")
 
 
 def build() -> Path:
     """Compile csrc/mvs_sweep.cu (cached by source hash); the compiler's
-    register/spill report is kept in ``build_log``."""
-    global build_log
-    path, log = cuda_build.compile_library(_SRC, _NVCC_FLAGS, "mvs_sweep")
-    if log:
-        build_log = log
-    return path
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.mvs_sweep_launch.argtypes = [p] * 9 + [i] * 11 + [p] * 4 + [i, p]
-            lib.mvs_sweep_launch.restype = i
-            lib.mvs_zero_mean_launch.argtypes = [p] * 4 + [i] * 8 + [i, p]
-            lib.mvs_zero_mean_launch.restype = i
-            for name in ("mvs_tile", "mvs_threads"):
-                getattr(lib, name).argtypes = []
-                getattr(lib, name).restype = i
-            if (lib.mvs_tile(), lib.mvs_threads()) != (TILE, THREADS):
-                raise RuntimeError(f"{_SRC.name} tiles {lib.mvs_tile()} x {lib.mvs_threads()} "
-                                   f"threads, wrapper expects {TILE} x {THREADS}")
-            _lib = lib
-    return _lib
+    register/spill report is kept in ``LIB.log``."""
+    return LIB.build()
 
 
 def sweep_plan(batch: int, height: int, width: int, num_nbrs: int, num_uniform: int,
@@ -101,19 +79,7 @@ def zero_mean_plan(images: int, height: int, width: int,
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dev: torch.device) -> None:
-    if x.device != dev or x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream(dev: torch.device) -> int:
-    # The raw handle of the current stream, without building a Stream object.
-    return torch._C._cuda_getCurrentRawStream(dev.index)
+    cuda_build.check_tensor(name, x, torch.float32, shape=shape, device=dev)
 
 
 def sweep_select(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets, cost_radius: int,
@@ -153,7 +119,7 @@ def sweep_select(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets, cost_radius
     if smem > MAX_SMEM:
         raise ValueError(f"sweep needs {smem} bytes of shared memory a block (radius "
                          f"{cost_radius}, {M} neighbours, {D} hypotheses), over {MAX_SMEM}")
-    lib = _load()
+    lib = LIB.load()
     invd, best, mean, den = (torch.empty((B, H, W), dtype=torch.float32, device=dev)
                              for _ in range(4))
     err = lib.mvs_sweep_launch(
@@ -161,7 +127,7 @@ def sweep_select(ref_zm, nbrs_zm, Kl, R_rel, t_rel, center, offsets, cost_radius
         center.data_ptr(), offsets.data_ptr(), None if ex is None else ex.data_ptr(),
         None if dist is None else dist.data_ptr(), B, M, H, W, D, E, cost_radius,
         int(sample_mode == "nearest"), grid[0], grid[1], smem, invd.data_ptr(), best.data_ptr(),
-        mean.data_ptr(), den.data_ptr(), dev.index, _stream(dev))
+        mean.data_ptr(), den.data_ptr(), dev.index, cuda_build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"mvs sweep kernel launch failed with CUDA error {err}")
     profiling.count("mvs.sweep_kernel", 1)
@@ -186,11 +152,11 @@ def zero_mean(refs: torch.Tensor, nbrs: torch.Tensor, radius: int):
     if smem > MAX_SMEM:
         raise ValueError(f"zero-mean needs {smem} bytes of shared memory a block (radius "
                          f"{radius}), over {MAX_SMEM}")
-    lib = _load()
+    lib = LIB.load()
     refs_out, nbrs_out = torch.empty_like(refs), torch.empty_like(nbrs)
     err = lib.mvs_zero_mean_launch(
         refs.data_ptr(), nbrs.data_ptr(), refs_out.data_ptr(), nbrs_out.data_ptr(), B, B * M, H,
-        W, radius, grid[0], grid[1], smem, dev.index, _stream(dev))
+        W, radius, grid[0], grid[1], smem, dev.index, cuda_build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"mvs zero-mean kernel launch failed with CUDA error {err}")
     profiling.count("mvs.sweep_kernel", 1)

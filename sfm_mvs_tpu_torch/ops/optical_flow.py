@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from sfm_mvs_tpu_torch.ops import pyramid
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 
 class FlowResult(NamedTuple):
@@ -60,8 +61,6 @@ def track_points(img0, img1, pts0, valid0, levels: int = 3, window_radius: int =
     Returns a FlowResult with positions in img1's frame.
     """
     if not isinstance(img0, torch.Tensor):
-        from sfm_mvs_tpu_torch.models.incremental import resolve_device
-
         dev = resolve_device(device)
         img0 = torch.as_tensor(np.asarray(img0, np.float32), device=dev)
         img1 = torch.as_tensor(np.asarray(img1, np.float32), device=dev)

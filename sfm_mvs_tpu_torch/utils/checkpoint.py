@@ -16,9 +16,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sfm_mvs_tpu_torch.models.incremental import PipelineState, resolve_device
+from sfm_mvs_tpu_torch.models.incremental import PipelineState
 from sfm_mvs_tpu_torch.models.map_store import MapState
 from sfm_mvs_tpu_torch.ops.sift import Features
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 
 def _arrays(prefix: str, nt) -> dict:

@@ -40,10 +40,9 @@ class FrontendConfig:
     # Gradient sampling for orientation/descriptor windows.
     # "nearest_polar": one gather per sample from a polar-gradient map
     #   quantized to (bf16 magnitude, bf16 angle) — OpenCV SIFT's
-    #   per-pixel (uninterpolated) gradient use. The port implements only
-    #   this mode.
-    # "bilinear": 4-corner bilinear interpolation of (dx, dy) maps (JAX
-    #   package only so far).
+    #   per-pixel (uninterpolated) gradient use.
+    # "bilinear": 4-corner bilinear interpolation of (dx, dy) maps.
+    # The port implements both modes.
     grad_sampling: str = "nearest_polar"
     # Approximate per-octave top-k (lax.approx_max_k in the JAX package).
     # The port always selects with the exact torch.topk, which is what the

@@ -6,18 +6,24 @@ features itself), ``redetect_for_sweep`` (for numpy frames without K),
 loaders default to ``device="cuda"``. Where CUDA is absent they raise a
 RuntimeError that names ``device="cpu"``; nothing falls back to the CPU
 silently. ``init_map`` keeps every field on a tensor K's device. Each test decides at run time whether the
-machine has a GPU (and skips there: the defaults then just work).
+machine has a GPU (and skips there: the defaults then just work). The rule
+is ``utils/device.resolve_device``, defined there alone, and no module
+under ``ops/`` reaches up into ``models/``.
 """
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from sfm_mvs_tpu_torch.models import densify, exhaustive, map_store
-from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM, PipelineState, resolve_device
+from sfm_mvs_tpu_torch.models.incremental import IncrementalSfM, PipelineState
 from sfm_mvs_tpu_torch.ops.sift import Features
 from sfm_mvs_tpu_torch.utils import checkpoint
 from sfm_mvs_tpu_torch.utils.config import MapConfig, SfmConfig
+from sfm_mvs_tpu_torch.utils.device import resolve_device
 
 NAMES_CPU = 'device="cpu"'
 
@@ -108,3 +114,25 @@ def test_init_map_follows_k_or_defaults_to_cuda():
     _skip_with_cuda()
     with pytest.raises(RuntimeError, match=NAMES_CPU):
         map_store.init_map(np.eye(3, dtype=np.float32), cfg)
+
+
+def test_the_device_rule_has_one_home_below_the_drivers():
+    """Read from the sources: ``resolve_device`` is defined once, in
+    utils/device.py, and no module under ops/ imports the models package."""
+    pkg = Path(resolve_device.__code__.co_filename).resolve().parent.parent
+    defined, upward = [], []
+    for path in sorted(pkg.rglob("*.py")):
+        rel = path.relative_to(pkg).as_posix()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.FunctionDef) and node.name == "resolve_device":
+                defined.append(rel)
+            if rel.startswith("ops/"):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):  # `from pkg import models` too
+                    names = [f"{node.module}.{a.name}" for a in node.names]
+                upward += [f"{rel}: {n}" for n in names
+                           if n.startswith("sfm_mvs_tpu_torch.models")]
+    assert defined == ["utils/device.py"]
+    assert upward == []

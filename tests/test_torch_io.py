@@ -41,12 +41,12 @@ def write_path(request, monkeypatch):
     test time, when those builds have ended."""
     if request.param == "native":
         if not (native.available() and jnative.available()):
-            native._lib = None
+            native.LIB._error = None
             jnative._lib = None
             if not (native.available() and jnative.available()):
                 pytest.skip("the native library does not build here (libjpeg/libpng headers)")
     else:
-        monkeypatch.setattr(native, "_lib", False)
+        monkeypatch.setattr(native, "_load", lambda: None)
         monkeypatch.setattr(jnative, "_lib", False)
     return request.param
 

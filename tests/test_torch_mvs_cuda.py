@@ -4,16 +4,19 @@ the plain code bit for bit and launch nothing, the wrappers refuse what
 the kernels do not take before building anything, and the host-side
 planning of grids and shared memory. The kernels themselves are held to
 a float64 plain sweep on the card by ``chip_smoke.py`` (its MVS kernel
-check).
+check). The library declarations (``ops/cuda_build.Library``) of both
+CUDA sources, MVS pass 1's and K1's (``ops/matching_cuda.py``,
+``csrc/knn2.cu``), are checked against their sources here too.
 """
 
 import inspect
+import re
 
 import pytest
 import torch
 
 from sfm_mvs_tpu_torch.models import mvs
-from sfm_mvs_tpu_torch.ops import cuda_build, mvs_cuda
+from sfm_mvs_tpu_torch.ops import cuda_build, matching_cuda, mvs_cuda
 from sfm_mvs_tpu_torch.utils import profiling
 
 
@@ -90,22 +93,39 @@ def test_zero_mean_on_cpu_is_the_box_filter(rng):
     assert torch.equal(zn, nbr - mvs._box_filter(nbr, 2))
 
 
-def test_wrappers_refuse_before_building(rng, monkeypatch):
+def _mvs_refusals(rng):
+    ref, nbr, K, R, t, center, offs, extra = _sweep_args(rng)
+    return [
+        ("CUDA", lambda: mvs_cuda.sweep_select(ref, nbr, K, R, t, center, offs, 2, extra=extra)),
+        ("CUDA", lambda: mvs_cuda.zero_mean(ref, nbr, 2)),
+        (r"\(B, H, W\)",
+         lambda: mvs_cuda.sweep_select(ref[0], nbr[0], K, R[0], t[0], center[0], offs[0], 2)),
+        (r"\(B, H, W\)", lambda: mvs_cuda.zero_mean(ref[0], nbr, 2)),
+    ]
+
+
+def _k1_refusals(rng):
+    d0 = torch.as_tensor(rng.random((40, 128)), dtype=torch.float32)
+    d1 = torch.as_tensor(rng.random((50, 128)), dtype=torch.float32)
+    v1 = torch.ones(50, dtype=torch.bool)
+    return [
+        ("CUDA", lambda: matching_cuda.knn2_raw(d0, d1, v1)),
+        ("CUDA", lambda: matching_cuda.knn2_raw(d0[None], d1[None], v1[None])),
+        (r"\(N0, D\)", lambda: matching_cuda.knn2_raw(d0[0], d1, v1)),
+    ]
+
+
+@pytest.mark.parametrize("refusals", [_mvs_refusals, _k1_refusals], ids=["mvs", "k1"])
+def test_wrappers_refuse_before_building(rng, monkeypatch, refusals):
     """CPU tensors and a missing batch axis raise ValueError at the
     checks, before nvcc is looked for."""
     def no_build(*a, **k):
         raise AssertionError("built")
 
-    monkeypatch.setattr(mvs_cuda, "build", no_build)
-    ref, nbr, K, R, t, center, offs, extra = _sweep_args(rng)
-    with pytest.raises(ValueError, match="CUDA"):
-        mvs_cuda.sweep_select(ref, nbr, K, R, t, center, offs, 2, extra=extra)
-    with pytest.raises(ValueError, match="CUDA"):
-        mvs_cuda.zero_mean(ref, nbr, 2)
-    with pytest.raises(ValueError, match=r"\(B, H, W\)"):
-        mvs_cuda.sweep_select(ref[0], nbr[0], K, R[0], t[0], center[0], offs[0], 2)
-    with pytest.raises(ValueError, match=r"\(B, H, W\)"):
-        mvs_cuda.zero_mean(ref[0], nbr, 2)
+    monkeypatch.setattr(cuda_build, "compile_library", no_build)
+    for match, call in refusals(rng):
+        with pytest.raises(ValueError, match=match):
+            call()
 
 
 @pytest.mark.parametrize("B,H,W,M,D,grid", [
@@ -166,13 +186,26 @@ def test_ptxas_report_parses_registers_and_spills():
         "_ZN12_GLOBAL__N_112sweep_kernelEv": (80, 12), "_Z4zeroPf": (32, 0)}
 
 
-def test_the_kernel_source_and_flags():
-    """The library is built from csrc/mvs_sweep.cu for sm_90a without
-    contraction, and exports what the wrapper binds."""
-    assert mvs_cuda._SRC.exists()
-    assert "-fmad=false" in mvs_cuda._NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in mvs_cuda._NVCC_FLAGS
-    src = mvs_cuda._SRC.read_text()
-    for name in ("mvs_sweep_launch", "mvs_zero_mean_launch", "mvs_tile", "mvs_threads"):
+def _int_constant(src: str, name: str) -> int:
+    """The value of the source's ``constexpr int <name>``, its expression
+    over other such constants evaluated."""
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+    return eval(re.sub(r"[A-Za-z_]\w*", lambda m: str(_int_constant(src, m.group())), expr))
+
+
+@pytest.mark.parametrize("module,extra_flags", [(mvs_cuda, ["-fmad=false"]),
+                                                (matching_cuda, [])], ids=["mvs", "k1"])
+def test_the_kernel_source_and_flags(module, extra_flags):
+    """Each CUDA library is built from its csrc/ source for sm_90a with the
+    shared flags (MVS pass 1 also without contraction), and its source
+    exports what its declaration binds, returning the wrapper's constants."""
+    lib = module.LIB
+    assert lib.src == module._SRC and lib.src.exists()
+    assert lib.flags == cuda_build.NVCC_FLAGS + extra_flags
+    assert "arch=compute_90a,code=sm_90a" in lib.flags
+    src = lib.src.read_text()
+    for name in [*lib.functions, *lib.constants]:
         assert f"{name}(" in src
-    assert f"TILE = {mvs_cuda.TILE};" in src and f"THREADS = {mvs_cuda.THREADS};" in src
+    for name, want in lib.constants.items():
+        returned = re.search(rf"int {name}\(\) {{ return (\w+); }}", src).group(1)
+        assert _int_constant(src, returned) == want, name
